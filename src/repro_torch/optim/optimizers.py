@@ -1,0 +1,83 @@
+"""Optimizers: SGD(+momentum) and AdamW (counterpart of
+``repro.optim.optimizers``; ZeRO-1 state sharding comes with the parallel
+slice).
+
+State is a dict of fp32 tensors keyed by parameter name (``m``/``v`` for
+AdamW, ``mom`` for SGD). Unlike the JAX package's pure update, ``apply_update``
+writes the new parameters and state in place: that keeps one copy of each
+instead of two. The arithmetic is the reference's: clip to a global norm of
+``grad_clip`` first, bias correction with ``count = step + 1``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"            # "adamw" | "sgd"
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    momentum: float = 0.9          # sgd
+    grad_clip: float = 1.0
+
+
+def init_state(opt: OptimizerConfig, params: dict[str, torch.Tensor]) -> dict:
+    """fp32 zeros shaped like each parameter (counterpart of ``state_spec``)."""
+
+    def zeros():
+        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for k, p in params.items()}
+
+    if opt.name == "adamw":
+        return {"m": zeros(), "v": zeros()}
+    if opt.name == "sgd":
+        return {"mom": zeros()}
+    raise ValueError(opt.name)
+
+
+def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.stack([g.float().square().sum()
+                        for g in grads.values()]).sum().sqrt()
+
+
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
+    """fp32 grads scaled to a global norm of at most ``max_norm``."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return {k: g.float() * scale for k, g in grads.items()}, norm
+
+
+@torch.no_grad()
+def apply_update(opt: OptimizerConfig, params: dict[str, torch.Tensor],
+                 grads: dict[str, torch.Tensor], state: dict, step: int) -> dict:
+    """Update ``params`` and ``state`` in place; returns the metrics."""
+    grads, gnorm = clip_by_global_norm(grads, opt.grad_clip)
+    count = float(step) + 1.0
+
+    if opt.name == "adamw":
+        b1, b2 = opt.b1, opt.b2
+        c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+        for k, p in params.items():
+            g, m, v = grads[k], state["m"][k], state["v"][k]
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            pf = p.float()
+            upd = opt.lr * ((m / c1) / (torch.sqrt(v / c2) + opt.eps)
+                            + opt.weight_decay * pf)
+            p.copy_(pf - upd)
+        return {"grad_norm": gnorm}
+
+    if opt.name == "sgd":
+        for k, p in params.items():
+            mom = state["mom"][k]
+            mom.copy_(opt.momentum * mom + grads[k])
+            p.copy_(p.float() - opt.lr * mom)
+        return {"grad_norm": gnorm}
+
+    raise ValueError(opt.name)

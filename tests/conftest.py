@@ -18,6 +18,10 @@ def pytest_configure(config):
         "markers", "chaos: elastic-training chaos scenarios (subprocess, "
         "virtual devices) — excluded from the tier-1 fast path; run with "
         "'pytest -m chaos' or scripts/check.sh's chaos-gate")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels have "
+        "no CPU mode); skips without one — run on the card with "
+        "'pytest -m cuda tests/test_torch_*.py'")
 
 
 def pytest_collection_modifyitems(config, items):
