@@ -5,16 +5,31 @@
 
 Phases, each printing lines of numbers; any failure exits non-zero:
   1. device  CUDA must be present; the card's name and power limit.
-  2. build   nvcc builds every kernel from src/repro_torch/kernels/csrc.
+  2. build   nvcc builds every kernel from src/repro_torch/kernels/csrc,
+             one nvcc per source, all at once.
   3. kernels conv2d_gemm on ResNet-50's 8 distinct HaloConv shapes at
              batch 32, a pad_h=False (halo) case and an odd shape, in fp32
-             and bf16, held against its plain version (TF32 off); the
-             kernel's, the plain version's and one F.conv2d call's times
-             (the library yardstick, which the port never calls).
+             and bf16; rmsnorm on the Qwen1.5-4B prompt (8192 x 2560) and
+             decode (4 x 2560) shapes in bf16 and a prime row count in
+             fp32; flash_attention on the Qwen1.5-4B prompt shape
+             (4, 20, 2048, 128) in bf16, causal, a ragged S = 1000, a
+             non-causal and an fp32 case. Each held against its plain
+             version (TF32 off), with the kernel's, the plain version's and
+             one library call's times (F.conv2d, F.rms_norm,
+             F.scaled_dot_product_attention: yardsticks the port never
+             calls).
   4. eval    the ResNet-50 eval forward at batch 32, 224², with use_pallas
              on and off, same weights: the kernel launches exactly 17 times
              and the logits agree to 1e-3.
   5. train   repro_torch.launch.train.main: ResNet-50, batch 32, 3 steps.
+  6. serve   Qwen1.5-4B at full width in bf16, random weights from seed 0:
+             a prompt pass over 4 prompts of 2048 tokens, then 32 greedy
+             decode steps into a cache of 2080 positions, with use_pallas:
+             rmsnorm launches 81 times and flash_attention 40 times in the
+             prompt pass, rmsnorm 81 times and flash_attention never in each
+             decode step. The same prompt pass and the first decode steps
+             again on the plain path, fed the same tokens: the logits agree
+             within the bar stated at SERVE_TOL.
 Then a JSON line for the kernels, the nvidia-smi line, and the result line.
 It imports nothing of jax or of the JAX package.
 """
@@ -38,11 +53,17 @@ from repro_torch.data.pipeline import Loader  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.conv2d_gemm.conv2d_gemm import conv2d_gemm  # noqa: E402
 from repro_torch.kernels.conv2d_gemm.ref import conv2d_padded  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import \
+    flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.util import same_pads  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.build import build_model  # noqa: E402
-from repro_torch.nn.module import ShardingCtx  # noqa: E402
-from repro_torch.training.steps import make_eval_step  # noqa: E402
+from repro_torch.nn.module import ShardingCtx, zeros_like_spec  # noqa: E402
+from repro_torch.training.steps import (make_decode_step,  # noqa: E402
+                                        make_eval_step, make_prefill_step)
 
 BATCH = 32
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32 outside the
@@ -67,6 +88,43 @@ CONV_CASES = [
 SOURCE = "src/repro_torch/kernels/csrc/conv2d_gemm.cu"
 REPLACES = "src/repro/kernels/conv2d_gemm/conv2d_gemm.py:83"
 
+# (name, rows, D, dtype): the Qwen1.5-4B norms of a prompt pass (4 x 2048
+# tokens) and of a decode step (4 tokens), and a prime row count.
+# Bars: fp32 1e-5 (the sum of squares in another order, rsqrt to 2 ulp);
+# bf16 one bf16 ulp of the output (8 significant bits: 2^-7 relative, atol
+# 2^-8 for values near 0), since a last-bit fp32 difference can flip the
+# final rounding.
+RMS_CASES = [("prompt_8192x2560", 8192, 2560, torch.bfloat16),
+             ("decode_4x2560", 4, 2560, torch.bfloat16),
+             ("prime_8191x2560_fp32", 8191, 2560, torch.float32)]
+RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -8)}
+# (name, B, H, S, D, causal, dtype): the Qwen1.5-4B prompt pass's attention,
+# a ragged S, a non-causal and an fp32 case. Bars: fp32 1e-4 (online softmax
+# and sums in another order over up to 2048 keys); bf16 3e-2 (the kernel
+# and the plain version both work in fp32 from the same bf16 inputs and
+# round only the output, one bf16 ulp of |o| < 4 is ≤ 1.6e-2).
+FLASH_CASES = [("prompt_4x20x2048x128", 4, 20, 2048, 128, True,
+                torch.bfloat16),
+               ("ragged_S1000", 4, 20, 1000, 128, True, torch.bfloat16),
+               ("noncausal_S2048", 4, 20, 2048, 128, False, torch.bfloat16),
+               ("fp32_S2048", 4, 20, 2048, 128, True, torch.float32)]
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
+KERNEL_REPLACES = {
+    "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:43",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:80"}
+
+# The serve phase: Qwen1.5-4B, 4 prompts of 2048 tokens, 32 decode steps.
+SERVE_B, SERVE_S, SERVE_STEPS, SERVE_CMP_STEPS = 4, 2048, 32, 4
+# Bar on max |logits_kernel - logits_plain| / max |logits_plain| over the
+# prompt pass and the first decode steps, the same tokens fed to both. The
+# plain path's chunked attention rounds the scores (|q·k| up to ~16, bf16
+# ulp 2^-4) and the softmax weights to bf16 before P·V, the kernel keeps
+# them in fp32; through 40 layers that moves the logits by ~2 % of their
+# scale (2.3 % measured on an H100). 5 % leaves room for that and still
+# fails a kernel with a wrong mask or scale, which moves them by O(1).
+SERVE_TOL = 5e-2
+
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
@@ -85,6 +143,31 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def kernel_ms(fn, reps: int = 20, warmup: int = 3, replays: int = 5) -> float:
+    """Device time of one call: after warm-up, ``reps`` calls captured in a
+    CUDA graph; the median over ``replays`` replays, each between two CUDA
+    events, divided by ``reps``. The graph leaves out the host's cost of
+    launching each call (tens of µs, more than a small kernel takes)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    pairs = []
+    for _ in range(replays):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del graph
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) / reps
 
 
 def nvidia_smi() -> str:
@@ -142,9 +225,9 @@ def conv_case(name, H, W, C, Fo, k, s, pad_h, dtype, gen, dev):
     xp = F.pad(x.permute(0, 3, 1, 2), (*pads_w, *pads_h)).contiguous(
         memory_format=torch.channels_last)
     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    ms = time_ms(kernel)
-    plain_ms = time_ms(plain)
-    library_ms = time_ms(lambda: F.conv2d(xp, w_oihw, stride=s))
+    ms = kernel_ms(kernel)
+    plain_ms = kernel_ms(plain)
+    library_ms = kernel_ms(lambda: F.conv2d(xp, w_oihw, stride=s))
     Ho, Wo = y_k.shape[1], y_k.shape[2]
     flops = 2.0 * BATCH * Ho * Wo * Fo * k * k * C
     nbytes = (x.numel() + w.numel() + y_k.numel()) * x.element_size()
@@ -185,6 +268,103 @@ def phase_kernels(dev) -> dict:
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": bound_by,
             "library_ms": total["library_ms"]}
+
+
+def _bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _print_row(kernel: str, row: dict):
+    print(f"[kernel] {kernel} " + " ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in row.items()), flush=True)
+
+
+def phase_rmsnorm(dev) -> dict:
+    """rmsnorm on every case; returns the kernels-line entry, timed at the
+    prompt-pass shape (80 of a prompt pass's 81 launches)."""
+    gen = torch.Generator().manual_seed(1)
+    rows_out, max_err = {}, 0.0
+    for name, rows, D, dtype in RMS_CASES:
+        x = torch.randn((rows, D), generator=gen).to(dev, dtype)
+        scale = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev)
+        y_k = rmsnorm(x, scale)
+        torch.cuda.synchronize()
+        y_p = rmsnorm_ref(x, scale)
+        rtol, atol = RMS_TOL[dtype]
+        diff = (y_k.float() - y_p.float()).abs()
+        err = float(diff.max())
+        if bool((diff > atol + rtol * y_p.float().abs()).any()):
+            fail(f"rmsnorm {name}: max abs err {err} over rtol {rtol}, "
+                 f"atol {atol}")
+        max_err = max(max_err, err)
+        w_lib = scale.to(dtype)       # F.rms_norm takes x's dtype
+        row = {"case": name, "dtype": str(dtype).removeprefix("torch."),
+               "ms": kernel_ms(lambda: rmsnorm(x, scale), reps=50),
+               "plain_ms": kernel_ms(lambda: rmsnorm_ref(x, scale),
+                                     reps=50),
+               "library_ms": kernel_ms(lambda: F.rms_norm(x, (D,), w_lib,
+                                                          1e-6), reps=50),
+               **_bound(4.0 * rows * D,
+                        2 * x.numel() * x.element_size() + 4 * D, dtype),
+               "max_abs_err": err, "rtol": rtol, "atol": atol}
+        _print_row("rmsnorm", row)
+        rows_out[name] = row
+    main = rows_out["prompt_8192x2560"]
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": KERNEL_SOURCE.format("rmsnorm"),
+            "replaces": KERNEL_REPLACES["rmsnorm"], "launches": None,
+            "max_abs_err": max_err,
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}
+
+
+def phase_flash(dev) -> dict:
+    """flash_attention on every case; returns the kernels-line entry, timed
+    at the prompt-pass shape."""
+    gen = torch.Generator().manual_seed(2)
+    rows_out, max_err = {}, 0.0
+    for name, B, H, S, D, causal, dtype in FLASH_CASES:
+        q, k, v = (torch.randn((B, H, S, D), generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        o_k = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        o_p = attention_ref(q, k, v, causal=causal)
+        tol = FLASH_TOL[dtype]
+        diff = (o_k.float() - o_p.float()).abs()
+        err = float(diff.max())
+        if not bool(torch.isfinite(o_k).all()) or \
+                bool((diff > tol + tol * o_p.float().abs()).any()):
+            fail(f"flash_attention {name}: max abs err {err} over {tol}")
+        max_err = max(max_err, err)
+        del o_p
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        row = {"case": name, "dtype": str(dtype).removeprefix("torch."),
+               "ms": kernel_ms(lambda: flash_attention(q, k, v,
+                                                       causal=causal),
+                               reps=10, warmup=2),
+               "plain_ms": kernel_ms(lambda: attention_ref(q, k, v,
+                                                           causal=causal),
+                                     reps=3, warmup=1),
+               "library_ms": kernel_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal), reps=10, warmup=2),
+               **_bound(4.0 * D * pairs, 4 * q.numel() * q.element_size(),
+                        dtype),
+               "max_abs_err": err, "tol": tol}
+        row["tflops"] = 4.0 * D * pairs / (row["ms"] * 1e-3) / 1e12
+        _print_row("flash_attention", row)
+        rows_out[name] = row
+        del q, k, v, o_k
+        torch.cuda.empty_cache()
+    main = rows_out["prompt_4x20x2048x128"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": KERNEL_SOURCE.format("flash_attention"),
+            "replaces": KERNEL_REPLACES["flash_attention"], "launches": None,
+            "max_abs_err": max_err,
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}
 
 
 def phase_eval() -> int:
@@ -236,16 +416,140 @@ def phase_train():
           flush=True)
 
 
+def _logit_diff(kernel: torch.Tensor, plain: torch.Tensor) -> dict:
+    if kernel.shape != plain.shape or not bool(torch.isfinite(kernel).all()):
+        fail(f"serve logits: shape {tuple(kernel.shape)} vs "
+             f"{tuple(plain.shape)}, or not finite")
+    d = float((kernel - plain).abs().max())
+    scale = float(plain.abs().max())
+    agree = float((kernel.argmax(-1) == plain.argmax(-1)).float().mean())
+    return {"max_abs_diff": d, "logit_scale": scale, "rel": d / scale,
+            "argmax_agree": agree}
+
+
+def _reset_counts():
+    rmsnorm.launches = flash_attention.launches = 0
+
+
+def _counts() -> tuple[int, int]:
+    return rmsnorm.launches, flash_attention.launches
+
+
+def phase_serve(dev) -> tuple[int, int]:
+    """Qwen1.5-4B: prompt pass and greedy decode with use_pallas, then the
+    same on the plain path; returns (rmsnorm, flash_attention) launches of
+    the kernel run."""
+    cfg = get_config("qwen1.5-4b")
+    mc = cfg.model
+    ctx_k, ctx_p = ShardingCtx(dev, use_pallas=True), ShardingCtx(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, ctx_k, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    tokens = torch.randint(0, mc.vocab, (SERVE_B, SERVE_S), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    spec = model.cache_spec(SERVE_B, SERVE_S + SERVE_STEPS)
+    cache = zeros_like_spec(spec, dev)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for c in cache["blocks"] for t in c.values())
+    prefill_k = make_prefill_step(model, ctx_k)
+    decode_k = make_decode_step(model, ctx_k)
+
+    # warm-up (cuBLAS picks its algorithms); the run below rewrites these
+    # cache positions before it reads them
+    prefill_k({"tokens": tokens}, cache)
+    decode_k(tokens[:, :1], cache, SERVE_S)
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_k({"tokens": tokens}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if _counts() != (81, 40):
+        fail(f"prompt pass launched (rmsnorm, flash_attention) {_counts()}, "
+             f"not (81, 40)")
+    total = list(_counts())
+    if tuple(logits.shape) != (SERVE_B, 1, mc.vocab) or \
+            logits.dtype != torch.float32:
+        fail(f"prompt logits {tuple(logits.shape)} {logits.dtype}")
+    kernel_logits, fed, step_s = [logits.clone()], [], []
+    tok = logits.argmax(-1)
+    for i in range(SERVE_STEPS):
+        fed.append(tok)
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = decode_k(tok, cache, SERVE_S + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if _counts() != (81, 0):
+            fail(f"decode step {i} launched (rmsnorm, flash_attention) "
+                 f"{_counts()}, not (81, 0)")
+        total[0] += rmsnorm.launches
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"decode step {i}: logits not finite")
+        if i < SERVE_CMP_STEPS:
+            kernel_logits.append(logits.clone())
+        tok = logits.argmax(-1)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the plain path on the card, fed the same tokens
+    del cache
+    cache = zeros_like_spec(spec, dev)
+    prefill_p = make_prefill_step(model, ctx_p)
+    decode_p = make_decode_step(model, ctx_p)
+    _reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_p({"tokens": tokens}, cache)
+    torch.cuda.synchronize()
+    plain_prefill_s = time.perf_counter() - t0
+    diffs = [_logit_diff(kernel_logits[0], logits)]
+    for i in range(SERVE_CMP_STEPS):
+        logits, cache = decode_p(fed[i], cache, SERVE_S + i)
+        diffs.append(_logit_diff(kernel_logits[i + 1], logits))
+    if _counts() != (0, 0):
+        fail(f"the plain path launched kernels {_counts()}")
+    for i, d in enumerate(diffs):
+        print(f"[serve] logits kernel vs plain, "
+              f"{'prompt' if i == 0 else f'decode step {i - 1}'}: "
+              + " ".join(f"{k}={v:.6g}" for k, v in d.items()), flush=True)
+    decode_ms = statistics.mean(step_s) * 1e3
+    print(f"[serve] qwen1.5-4b params={model.num_params()} "
+          f"weights_bytes={weight_bytes} cache_bytes={cache_bytes} "
+          f"build_s={build_s:.4g} batch={SERVE_B} prompt={SERVE_S} "
+          f"steps={SERVE_STEPS} prefill_ms={prefill_s * 1e3:.6g} "
+          f"plain_prefill_ms={plain_prefill_s * 1e3:.6g} "
+          f"prefill_tokens_per_s={SERVE_B * SERVE_S / prefill_s:.6g} "
+          f"decode_ms_per_step={decode_ms:.6g} "
+          f"decode_ms_median={statistics.median(step_s) * 1e3:.6g} "
+          f"decode_tokens_per_s={SERVE_B / decode_ms * 1e3:.6g} "
+          f"launches_rmsnorm={total[0]} launches_flash={total[1]} "
+          f"max_memory_allocated={peak}", flush=True)
+    worst = max(d["rel"] for d in diffs)
+    if worst > SERVE_TOL:
+        fail(f"serve logits kernel vs plain: relative diff {worst} over "
+             f"{SERVE_TOL}")
+    del model, cache
+    torch.cuda.empty_cache()
+    return total[0], total[1]
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     ShardingCtx(dev)          # TF32 off for the plain versions
     phase_build()
-    entry = phase_kernels(dev)
-    entry["launches"] = phase_eval()
+    conv = phase_kernels(dev)
+    rms = phase_rmsnorm(dev)
+    flash = phase_flash(dev)
+    conv["launches"] = phase_eval()
     phase_train()
-    print(json.dumps({"kernels": [entry]}))
+    rms["launches"], flash["launches"] = phase_serve(dev)
+    print(json.dumps({"kernels": [conv, rms, flash]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

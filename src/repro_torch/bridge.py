@@ -2,10 +2,15 @@
 
 The JAX package's trees are nested dicts/lists; pass them with numpy leaves
 (``jax.tree.map(np.asarray, params)``). A leaf at path ``blocks/3/conv2/w``
-lands in the port's parameter ``blocks.3.conv2.w``. Both packages keep the
-NHWC/HWIO layouts, so every leaf is copied as it is, never transposed. Any
-leaf that is missing, extra, or of the wrong shape or dtype raises, so a
-parity test cannot run on a partly filled model.
+lands in the port's parameter ``blocks.3.conv2.w``. The JAX LMs stack their
+layers: leaf ``stacks/p/X`` holds, at index g, layer g·period + p (period =
+the number of pattern positions), which lands in the port's per-layer
+``blocks.<layer>.X``. Both packages keep the same layouts, so every leaf is
+copied as it is, never transposed; bf16 leaves (numpy arrays of
+``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) go through their
+16-bit pattern. Any leaf that is missing, extra, or of the wrong shape or
+dtype raises, so a parity test cannot run on a partly filled model. A model
+on the ``meta`` device is checked, not filled.
 """
 from __future__ import annotations
 
@@ -31,9 +36,37 @@ def flatten(tree, prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def _unstack_layers(leaves: dict[str, Any]) -> dict[str, Any]:
+    stacked = [k for k in leaves if k.startswith("stacks.")]
+    if not stacked:
+        return leaves
+    period = 1 + max(int(k.split(".")[1]) for k in stacked)
+    out = {k: v for k, v in leaves.items() if not k.startswith("stacks.")}
+    for k in stacked:
+        _, pos, rest = k.split(".", 2)
+        for g in range(np.shape(leaves[k])[0]):
+            out[f"blocks.{g * period + int(pos)}.{rest}"] = leaves[k][g]
+    return out
+
+
+def _torch_dtype(leaf) -> torch.dtype:
+    dt = np.dtype(leaf.dtype if hasattr(leaf, "dtype") else
+                  np.asarray(leaf).dtype)
+    if dt.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dt)).dtype
+
+
+def _to_tensor(leaf) -> torch.Tensor:
+    a = np.array(leaf, order="C")                    # a copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 @torch.no_grad()
 def _copy_into(targets: dict[str, torch.Tensor], tree, what: str) -> None:
-    leaves = flatten(tree)
+    leaves = _unstack_layers(flatten(tree))
     missing = sorted(set(targets) - set(leaves))
     extra = sorted(set(leaves) - set(targets))
     wrong = [f"{k}: {tuple(np.shape(leaves[k]))} != {tuple(targets[k].shape)}"
@@ -43,11 +76,11 @@ def _copy_into(targets: dict[str, torch.Tensor], tree, what: str) -> None:
         raise ValueError(f"{what} tree does not match the port: missing "
                          f"{missing}, extra {extra}, wrong shape {wrong}")
     for k, t in targets.items():
-        src = torch.from_numpy(np.array(leaves[k], order="C"))   # a copy
-        if src.dtype != t.dtype:
-            raise ValueError(f"{what} leaf {k}: dtype {src.dtype} != "
-                             f"{t.dtype}")
-        t.copy_(src)
+        dtype = _torch_dtype(leaves[k])
+        if dtype != t.dtype:
+            raise ValueError(f"{what} leaf {k}: dtype {dtype} != {t.dtype}")
+        if t.device.type != "meta":
+            t.copy_(_to_tensor(leaves[k]))
 
 
 def load_jax_params(model: torch.nn.Module, tree) -> None:

@@ -1,2 +1,2 @@
-from . import cnn_archs  # noqa: F401  (populate the registry)
+from . import cnn_archs, lm_archs  # noqa: F401  (populate the registry)
 from .base import ArchConfig, get_config

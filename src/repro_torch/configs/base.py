@@ -1,6 +1,6 @@
 """Config plumbing: arch descriptors and the registry (counterpart of
-``repro.configs.base``; the strategy fields come with the parallel slice,
-the LM-only fields and the input-shape cells with the LM slice)."""
+``repro.configs.base``; the strategy fields and the input-shape cells come
+with the parallel slice)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,7 +12,7 @@ class ArchConfig:
     """A registered architecture: full config + reduced smoke config."""
 
     name: str
-    family: str                    # "cnn" (the only family ported so far)
+    family: str                    # "cnn" | "lm" (the families ported so far)
     model: Any
     smoke_model: Any
     source: str                    # provenance of the configuration

@@ -1,2 +1,4 @@
-from .module import ShardingCtx, constant, fan_in_normal, resolve_device
-from .layers import BatchNorm, Conv, Dense, global_avg_pool, max_pool
+from .module import (ShardingCtx, constant, fan_in_normal, resolve_device,
+                     zeros_like_spec)
+from .layers import (BatchNorm, Conv, Dense, Embedding, RMSNorm,
+                     global_avg_pool, max_pool)

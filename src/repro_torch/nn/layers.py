@@ -1,9 +1,10 @@
-"""Core CNN layers: Dense, Conv (1/2/3-D), BatchNorm, pooling.
+"""Core layers: Dense, Embedding, RMSNorm, Conv (1/2/3-D), BatchNorm, pooling.
 
 Counterparts of ``repro.nn.layers`` with the same layouts and numerics:
 activations channels-last (N, *spatial, C), conv weights (*K, C, F), dense
-weights (in, out), so parameters carry over from JAX without a transpose.
-Every module takes ``forward(x, ctx)``; the CNN stack builds on these.
+weights (in, out), embedding tables (vocab, features), so parameters carry
+over from JAX without a transpose. Every module takes ``forward(x, ctx)``;
+the CNN stack and the LM build on these.
 
 Where PyTorch's defaults differ from XLA's, the port pads by hand: SAME
 padding is XLA's asymmetric split (``kernels.util.same_pads``), for the
@@ -17,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.rmsnorm.ref import rmsnorm_ref
+from ..kernels.rmsnorm.rmsnorm import rmsnorm
 from ..kernels.util import conv_weight, same_pads
 from .module import ShardingCtx, constant, fan_in_normal
 
@@ -67,6 +70,37 @@ class Dense(nn.Module):
     def forward(self, x, ctx: ShardingCtx):
         y = x @ self.w
         return y + self.b if self.use_bias else y
+
+
+class Embedding(nn.Module):
+    """``table[ids]``, table: (vocab_size, features), LeCun normal over the
+    features as in the reference."""
+
+    def __init__(self, vocab_size: int, features: int, *,
+                 device: torch.device, generator: torch.Generator | None,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.table = fan_in_normal((vocab_size, features), (1,), generator,
+                                   device, dtype)
+
+    def forward(self, ids, ctx: ShardingCtx):
+        return self.table[ids]
+
+
+class RMSNorm(nn.Module):
+    """x·rsqrt(mean(x²) + eps)·scale over the last dim, in fp32, cast back to
+    x's dtype; the scale is fp32, as the reference's tree default makes it.
+    With ``ctx.use_pallas`` it runs the fused kernel, else its plain
+    version."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, device: torch.device):
+        super().__init__()
+        self.eps = eps
+        self.scale = constant((dim,), 1.0, device)
+
+    def forward(self, x, ctx: ShardingCtx):
+        norm = rmsnorm if ctx.use_pallas else rmsnorm_ref
+        return norm(x, self.scale, eps=self.eps)
 
 
 class BatchNorm(nn.Module):

@@ -1,4 +1,5 @@
-"""Step functions: ``make_train_step`` and ``make_eval_step`` (counterparts of
+"""Step functions: ``make_train_step``, ``make_eval_step``,
+``make_prefill_step`` and ``make_decode_step`` (counterparts of
 ``repro.training.steps``).
 
 The train state is ``{"params": {name: Parameter}, "opt": {...}, "step": int}``
@@ -74,3 +75,28 @@ def make_eval_step(model, ctx: ShardingCtx, **fwd_kw) -> Callable:
         return dict(metrics, loss=loss, outputs=out)
 
     return eval_step
+
+
+def make_prefill_step(model, ctx: ShardingCtx, **kw) -> Callable:
+    """Returns prefill_step(batch, cache) -> (last-position logits, cache);
+    ``batch["tokens"]`` holds the prompts. The cache is filled in place (the
+    reference asks its callers to donate it for the same reason). Runs
+    without autograd, so ``use_pallas`` sites can use the forward-only
+    kernels."""
+
+    @torch.no_grad()
+    def prefill_step(batch, cache):
+        return model.prefill(batch["tokens"], cache, ctx, **kw)
+
+    return prefill_step
+
+
+def make_decode_step(model, ctx: ShardingCtx, **kw) -> Callable:
+    """Returns decode_step(token, cache, pos) -> (logits, cache): one new
+    token per sequence at position ``pos``, the cache updated in place."""
+
+    @torch.no_grad()
+    def decode_step(token, cache, pos):
+        return model.decode_step(token, cache, pos, ctx, **kw)
+
+    return decode_step

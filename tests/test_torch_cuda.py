@@ -2,9 +2,9 @@
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 without one. They import no jax, so they run where only PyTorch is
-installed:
+installed (``--noconftest``: ``tests/conftest.py`` imports jax):
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 import math
 
@@ -13,6 +13,10 @@ import torch
 
 from repro_torch.kernels.conv2d_gemm.conv2d_gemm import conv2d_gemm
 from repro_torch.kernels.conv2d_gemm.ref import conv2d_padded
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm
 from repro_torch.kernels.util import same_pads
 from repro_torch.nn.module import resolve_device
 
@@ -60,3 +64,85 @@ def test_conv2d_gemm_rejects_what_the_kernel_cannot_take(cuda):
         conv2d_gemm(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="one CUDA device"):
         conv2d_gemm(x, w.cpu())
+
+
+# rmsnorm: fp32 1e-5 (the sum of squares taken in another order, rsqrt to
+# 2 ulp); bf16 one bf16 ulp of the output (8 significant bits: 2^-7
+# relative), since a last-bit fp32 difference can flip the final rounding.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,D,dtype", [
+    (8192, 2560, torch.bfloat16),      # the Qwen1.5-4B prompt pass
+    (4, 2560, torch.bfloat16),         # a decode step
+    (8191, 2560, torch.float32),       # a prime row count
+    (37, 100, torch.float32),          # rows of 400 B: the scalar path
+    (3, 20, torch.bfloat16),
+])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, D, dtype):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((rows, D), generator=gen).to(cuda, dtype)
+    scale = (1 + 0.1 * torch.randn(D, generator=gen)).to(cuda)
+    before = rmsnorm.launches
+    y = rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    ref = rmsnorm_ref(x, scale)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=2 ** -8)
+    torch.testing.assert_close(y.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_rejects_what_the_kernel_cannot_take(cuda):
+    x = torch.randn((4, 64), device=cuda)
+    scale = torch.ones(64, device=cuda)
+    with pytest.raises(TypeError, match="float32 scale"):
+        rmsnorm(x.bfloat16(), scale.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rmsnorm(x.half(), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(torch.randn((64, 4), device=cuda).t(), scale)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rmsnorm(x, scale.cpu())
+
+
+# flash_attention against the full-matrix plain version: fp32 1e-4 (online
+# softmax and sums in another order); bf16 3e-2 (the output is rounded to
+# bf16, ulp 2^-8 relative, and the plain version rounds nothing before it).
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,D,causal,dtype", [
+    (1, 20, 2048, 128, True, torch.bfloat16),    # a Qwen1.5-4B prompt
+    (1, 4, 1000, 128, True, torch.bfloat16),     # a ragged last tile
+    (2, 4, 300, 128, False, torch.bfloat16),
+    (1, 4, 257, 128, True, torch.float32),
+    (2, 4, 64, 16, True, torch.float32),         # the smoke head dim
+    (1, 3, 130, 72, False, torch.float32),
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, S, D, causal,
+                                              dtype):
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((B, H, S, D), generator=gen).to(cuda, dtype)
+               for _ in range(3))
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(o.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
+    q = torch.randn((1, 2, 64, 128), device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(1, 2)
+        flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.randn((1, 2, 64, 136), device=cuda)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention(q, q.cpu(), q)
