@@ -12,12 +12,13 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              and bf16; rmsnorm on the Qwen1.5-4B prompt (8192 x 2560) and
              decode (4 x 2560) shapes in bf16 and a prime row count in
              fp32; flash_attention on the Qwen1.5-4B prompt shape
-             (4, 20, 2048, 128) in bf16, causal, a ragged S = 1000, a
-             non-causal and an fp32 case. Each held against its plain
-             version (TF32 off), with the kernel's, the plain version's and
-             one library call's times (F.conv2d, F.rms_norm,
-             F.scaled_dot_product_attention: yardsticks the port never
-             calls).
+             (4, 20, 2048, 128) in bf16, causal, in the layout the model
+             passes, a ragged S = 1000, a non-causal and an fp32 case. Each
+             held against its plain version (TF32 off), with the kernel's,
+             the plain version's and one library call's times (F.conv2d,
+             F.rms_norm, F.scaled_dot_product_attention: yardsticks the
+             port never calls). Three faults planted in the plain attention
+             must each fail the bf16 bar.
   4. eval    the ResNet-50 eval forward at batch 32, 224², with use_pallas
              on and off, same weights: the kernel launches exactly 17 times
              and the logits agree to 1e-3.
@@ -98,17 +99,32 @@ RMS_CASES = [("prompt_8192x2560", 8192, 2560, torch.bfloat16),
              ("decode_4x2560", 4, 2560, torch.bfloat16),
              ("prime_8191x2560_fp32", 8191, 2560, torch.float32)]
 RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -8)}
-# (name, B, H, S, D, causal, dtype): the Qwen1.5-4B prompt pass's attention,
-# a ragged S, a non-causal and an fp32 case. Bars: fp32 1e-4 (online softmax
-# and sums in another order over up to 2048 keys); bf16 3e-2 (the kernel
-# and the plain version both work in fp32 from the same bf16 inputs and
-# round only the output, one bf16 ulp of |o| < 4 is ≤ 1.6e-2).
+# (name, B, H, S, D, causal, dtype, model_layout): the Qwen1.5-4B prompt
+# pass's attention, on (B, H, S, D) views of (B, S, H, D) tensors as the
+# model passes them; the same on contiguous (B, H, S, D) tensors, and a
+# ragged S, a non-causal and an fp32 case.
 FLASH_CASES = [("prompt_4x20x2048x128", 4, 20, 2048, 128, True,
-                torch.bfloat16),
-               ("ragged_S1000", 4, 20, 1000, 128, True, torch.bfloat16),
-               ("noncausal_S2048", 4, 20, 2048, 128, False, torch.bfloat16),
-               ("fp32_S2048", 4, 20, 2048, 128, True, torch.float32)]
-FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+                torch.bfloat16, True),
+               ("prompt_contiguous", 4, 20, 2048, 128, True, torch.bfloat16,
+                False),
+               ("ragged_S1000", 4, 20, 1000, 128, True, torch.bfloat16,
+                False),
+               ("noncausal_S2048", 4, 20, 2048, 128, False, torch.bfloat16,
+                False),
+               ("fp32_S2048", 4, 20, 2048, 128, True, torch.float32, False)]
+# Bars (rtol, atol) on |kernel - plain| <= atol + rtol·|plain|. fp32: 1e-4
+# (online softmax and sums in another order over up to 2048 keys). bf16:
+# the kernel and the plain version both work in fp32 from the same bf16
+# inputs and round only the output, so a last-bit fp32 difference flips
+# that rounding by one bf16 ulp (≤ 2^-7 relative); atol 1e-3 covers the
+# fp32 sums' error where o is near 0. An absolute bar alone would be blind
+# here: on N(0, 1) inputs the late causal rows' outputs are ~0.04 rms. So
+# the run plants three faults in the plain version (the scale 1 % off, the
+# KV tile [1024, 1088) dropped from the rows past it, 2e-3 added to o) and
+# fails unless the bar rejects each. On an H100 the kernel read 0.61 of
+# this bar at the prompt shape (max abs err 0.0020; 0.72-0.79 and 0.0039
+# at S = 1000), the faults 10.9, 138 and 2.0 times it.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 1e-3)}
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 KERNEL_REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:43",
@@ -321,23 +337,66 @@ def phase_rmsnorm(dev) -> dict:
                                     "library_ms")}}
 
 
+def _bar_ratio(out: torch.Tensor, ref: torch.Tensor, rtol: float,
+               atol: float) -> float:
+    """max |out - ref| / (atol + rtol·|ref|): the bar fails above 1."""
+    ref = ref.float()
+    return float(((out.float() - ref).abs() / (atol + rtol * ref.abs())
+                  ).max())
+
+
+def _faulty_attention(q, k, v, mul: float = 1.0, drop=None):
+    """Causal attention in fp32 with the scores times ``mul`` and, with
+    ``drop = (lo, hi)``, keys lo..hi-1 hidden from the queries past them."""
+    S = q.shape[2]
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    if drop is not None:
+        keep[drop[1]:, drop[0]:drop[1]] = False
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        * (mul / math.sqrt(q.shape[-1]))
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+    return (p @ v.float()).to(q.dtype)
+
+
+def _planted_faults(q, k, v, o_p, rtol, atol) -> dict:
+    """Bar ratios of three faulty versions against the plain output; a bar
+    that lets one of them pass (ratio ≤ 1) fails the run."""
+    faults = {"fault_scale_1pct": _faulty_attention(q, k, v, mul=1.01),
+              "fault_drop_tile": _faulty_attention(q, k, v, drop=(1024, 1088)),
+              "fault_offset_2e-3": (o_p.float() + 2e-3).to(o_p.dtype)}
+    ratios = {n: _bar_ratio(o, o_p, rtol, atol) for n, o in faults.items()}
+    missed = [n for n, r in ratios.items() if r <= 1.0]
+    if missed:
+        fail(f"flash_attention bar (rtol {rtol}, atol {atol}) does not "
+             f"reject the planted faults {missed}: {ratios}")
+    return ratios
+
+
 def phase_flash(dev) -> dict:
     """flash_attention on every case; returns the kernels-line entry, timed
     at the prompt-pass shape."""
     gen = torch.Generator().manual_seed(2)
     rows_out, max_err = {}, 0.0
-    for name, B, H, S, D, causal, dtype in FLASH_CASES:
-        q, k, v = (torch.randn((B, H, S, D), generator=gen).to(dev, dtype)
+    for name, B, H, S, D, causal, dtype, model_layout in FLASH_CASES:
+        shape = (B, S, H, D) if model_layout else (B, H, S, D)
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
                    for _ in range(3))
+        if model_layout:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         o_k = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         o_p = attention_ref(q, k, v, causal=causal)
-        tol = FLASH_TOL[dtype]
-        diff = (o_k.float() - o_p.float()).abs()
-        err = float(diff.max())
-        if not bool(torch.isfinite(o_k).all()) or \
-                bool((diff > tol + tol * o_p.float().abs()).any()):
-            fail(f"flash_attention {name}: max abs err {err} over {tol}")
+        rtol, atol = FLASH_TOL[dtype]
+        err = float((o_k.float() - o_p.float()).abs().max())
+        ratio = _bar_ratio(o_k, o_p, rtol, atol)
+        if not bool(torch.isfinite(o_k).all()) or ratio > 1.0:
+            fail(f"flash_attention {name}: max abs err {err}, {ratio} times "
+                 f"the bar (rtol {rtol}, atol {atol})")
+        if o_k.stride() != q.stride():
+            fail(f"flash_attention {name}: output strides {o_k.stride()} "
+                 f"are not q's {q.stride()}")
+        faults = _planted_faults(q, k, v, o_p, rtol, atol) \
+            if dtype == torch.bfloat16 and causal and S > 1088 else {}
         max_err = max(max_err, err)
         del o_p
         pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
@@ -352,7 +411,8 @@ def phase_flash(dev) -> dict:
                    q, k, v, is_causal=causal), reps=10, warmup=2),
                **_bound(4.0 * D * pairs, 4 * q.numel() * q.element_size(),
                         dtype),
-               "max_abs_err": err, "tol": tol}
+               "max_abs_err": err, "rtol": rtol, "atol": atol,
+               "bar_ratio": ratio, **faults}
         row["tflops"] = 4.0 * D * pairs / (row["ms"] * 1e-3) / 1e12
         _print_row("flash_attention", row)
         rows_out[name] = row

@@ -20,7 +20,7 @@ def qwen15_4b() -> ArchConfig:
         return LMConfig(
             name="qwen1.5-4b", vocab=vocab, d_model=d, n_layers=L,
             attn=AttentionConfig(d, H, KV, hd, use_bias=True, dtype=BF16),
-            ffn=FFNConfig(d, ff, activation="silu", glu=True, dtype=BF16),
+            ffn=FFNConfig(d, ff, activation="silu", dtype=BF16),
             dtype=BF16)
     return ArchConfig(
         name="qwen1.5-4b", family="lm",

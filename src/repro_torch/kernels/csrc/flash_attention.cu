@@ -1,5 +1,5 @@
 // FlashAttention-2 forward for Hopper (sm_90a): o = softmax(q k^T / sqrt(D)) v
-// over (B*H, S, D) tensors, causal or not, with an online softmax in fp32.
+// over (B, H, S, D) tensors, causal or not, with an online softmax in fp32.
 //
 // Replaces the Pallas kernel
 // src/repro/kernels/flash_attention/flash_attention.py: _flash_fwd_kernel
@@ -27,10 +27,14 @@
 // holds a 4x4 tile of scores and a 4x8 tile of the output in registers.
 // wgmma, TMA and a multi-stage pipeline are later work.
 //
+// Each tensor is addressed through its own element strides over b, h and s
+// (d is unit-stride), so the model's (B, S, H, D) activations are read and
+// written in place through (B, H, S, D) views, with no transposed copies.
+//
 // Plain C interface, loaded with ctypes; each entry returns the CUDA error
 // code of its launch (0 on success). The caller allocates o and guarantees
-// contiguous, 16-byte aligned tensors on the current device, D <= 128 and a
-// multiple of 8, and B*H*S*D < 2^31.
+// tensors on the current device whose base and rows are 16-byte aligned,
+// and D <= 128 and a multiple of 8.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -44,6 +48,14 @@ constexpr int DS = DMAX + 4;  // row stride (floats) of the q and K/V tiles
 constexpr int PS = BQ + 4;    // row stride (floats) of the transposed P tile
 constexpr float NEG_INF = -1e30f;
 constexpr int SMEM_BYTES = (BQ * DS + BK * DS + BK * PS) * sizeof(float);
+
+// element strides of one (B, H, S, D) tensor over b, h and s
+struct Strides {
+  long long b, h, s;
+};
+struct Layout {
+  Strides q, k, v, o;
+};
 
 // 8 consecutive values, widened to fp32 (one or two 16-byte loads)
 __device__ __forceinline__ void load8(const float* p, float* out) {
@@ -72,18 +84,18 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// rows [row0, row0 + 64) of a (S, D) matrix into a [64][DS] fp32 tile,
-// times mul; rows past S are zero
+// rows [row0, row0 + 64) of an (S, D) matrix with row stride ld into a
+// [64][DS] fp32 tile, times mul; rows past S are zero
 template <typename T>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src,
                                           float* dst, int row0, int S, int D,
-                                          float mul) {
+                                          long long ld, float mul) {
   const int chunks = D / 8;
   for (int idx = threadIdx.x; idx < BQ * chunks; idx += NT) {
     const int r = idx / chunks;
     const int c = (idx - r * chunks) * 8;
     float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < S) load8(src + static_cast<size_t>(row0 + r) * D + c, v);
+    if (row0 + r < S) load8(src + (row0 + r) * ld + c, v);
     float4* d = reinterpret_cast<float4*>(dst + r * DS + c);
     d[0] = make_float4(v[0] * mul, v[1] * mul, v[2] * mul, v[3] * mul);
     d[1] = make_float4(v[4] * mul, v[5] * mul, v[6] * mul, v[7] * mul);
@@ -108,8 +120,8 @@ __device__ __forceinline__ float row_sum(float v) {  // over 16 lanes
 template <typename T, int DC>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Drt,
-                 float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o, Layout L, int H,
+                 int S, int Drt, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // [BQ][DS]  q * scale
   float* KVs = Qs + BQ * DS;   // [BK][DS]  K, then V, of one KV tile
@@ -117,12 +129,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int D = DC ? DC : Drt;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
-  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
+  const long long bi = blockIdx.x / H, hi = blockIdx.x % H;  // (b, h)
+  q += bi * L.q.b + hi * L.q.h;
+  k += bi * L.k.b + hi * L.k.h;
+  v += bi * L.v.b + hi * L.v.h;
+  o += bi * L.o.b + hi * L.o.h;
   const int tid = threadIdx.x;
   const int ty = tid / 16;  // rows ty*4 .. ty*4+3 of the q tile
   const int tx = tid % 16;  // score columns tx + 16j; output dims tx*4 + 64h
 
-  load_tile(q + base, Qs, q0, S, D, scale);
+  load_tile(q, Qs, q0, S, D, L.q.s, scale);
 
   float m[4], l[4], acc[4][8];
 #pragma unroll
@@ -137,7 +153,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(S, q0 + BQ) : S;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous V tile (and P) are consumed
-    load_tile(k + base, KVs, k0, S, D, 1.f);
+    load_tile(k, KVs, k0, S, D, L.k.s, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -195,7 +211,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
 
     __syncthreads();  // every thread is done with K
-    load_tile(v + base, KVs, k0, S, D, 1.f);
+    load_tile(v, KVs, k0, S, D, L.v.s, 1.f);
     __syncthreads();  // V and P are in place
 
 #pragma unroll 4
@@ -223,7 +239,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* out = o + base + static_cast<size_t>(row) * D;
+    T* out = o + row * L.o.s;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int d = tx * 4 + 64 * h;
@@ -236,42 +252,53 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DC>
-int launch_one(const T* q, const T* k, const T* v, T* o, int BH, int S, int D,
-               float scale, int causal, cudaStream_t stream) {
+int launch_one(const T* q, const T* k, const T* v, T* o, const Layout& L,
+               int B, int H, int S, int D, float scale, int causal,
+               cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (S + BQ - 1) / BQ);
-  flash_fwd_kernel<T, DC><<<grid, NT, SMEM_BYTES, stream>>>(q, k, v, o, S, D,
-                                                          scale, causal);
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  flash_fwd_kernel<T, DC><<<grid, NT, SMEM_BYTES, stream>>>(
+      q, k, v, o, L, H, S, D, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+// strides: 12 values, (b, h, s) of q, k, v and o in that order
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int S, int D, float scale, int causal, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int S, int D, const long long* strides, float scale, int causal,
+           void* stream) {
+  Layout L;
+  Strides* dst[4] = {&L.q, &L.k, &L.v, &L.o};
+  for (int i = 0; i < 4; ++i)
+    *dst[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const auto* qp = static_cast<const T*>(q);
   const auto* kp = static_cast<const T*>(k);
   const auto* vp = static_cast<const T*>(v);
   auto* op = static_cast<T*>(o);
   const auto s = static_cast<cudaStream_t>(stream);
   if (D == DMAX)
-    return launch_one<T, DMAX>(qp, kp, vp, op, BH, S, D, scale, causal, s);
-  return launch_one<T, 0>(qp, kp, vp, op, BH, S, D, scale, causal, s);
+    return launch_one<T, DMAX>(qp, kp, vp, op, L, B, H, S, D, scale, causal,
+                               s);
+  return launch_one<T, 0>(qp, kp, vp, op, L, B, H, S, D, scale, causal, s);
 }
 
 }  // namespace
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* o, int BH, int S, int D, float scale,
+                                   void* o, int B, int H, int S, int D,
+                                   const long long* strides, float scale,
                                    int causal, void* stream) {
-  return launch<float>(q, k, v, o, BH, S, D, scale, causal, stream);
+  return launch<float>(q, k, v, o, B, H, S, D, strides, scale, causal,
+                       stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int BH, int S,
-                                    int D, float scale, int causal,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, BH, S, D, scale, causal, stream);
+                                    const void* v, void* o, int B, int H,
+                                    int S, int D, const long long* strides,
+                                    float scale, int causal, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, B, H, S, D, strides, scale, causal,
+                               stream);
 }

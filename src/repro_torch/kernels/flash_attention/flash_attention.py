@@ -5,7 +5,10 @@ Same contract as the JAX package's ``flash_attention_fwd``: q, k, v of one
 shape (B, H, S, D) in float32 or bfloat16, causal or not, the result in q's
 dtype. The TPU tiles (``block_q``, ``block_k``, cut to divisors of S) are
 not carried over: the CUDA kernel uses fixed 64-row tiles and masks the
-ragged last one. It takes D ≤ 128, a multiple of 8.
+ragged last one. It takes D ≤ 128, a multiple of 8, and any strides
+whose rows start on 16 bytes with the last dim unit-stride: the model
+passes (B, H, S, D) views of its (B, S, H, D) activations, and the result
+has q's layout.
 
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches the kernel or raises. There is no backward kernel, so a call
@@ -24,9 +27,9 @@ from .ref import attention_ref
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                          ctypes.c_int,
-                                                          ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
 MAX_HEAD_DIM = 128
 
 
@@ -35,6 +38,12 @@ def _kernel_fn(dtype: torch.dtype):
     fn = getattr(load("flash_attention"), _ENTRY[dtype])
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    size = t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
+        all(st * size % 16 == 0 for st in t.stride()[:3])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,20 +73,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"flash_attention takes a head dim ≤ {MAX_HEAD_DIM} "
                          f"that is a multiple of 8, got {D}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v)):
-        raise ValueError("flash_attention takes contiguous, 16-byte aligned "
-                         "(B, H, S, D) tensors")
-    if q.numel() >= 2 ** 31 or S > 65535 * 64:
-        raise ValueError("flash_attention: each tensor must hold fewer than "
-                         "2^31 elements, and S at most 65535 tiles of 64")
-    o = torch.empty_like(q)
+    o = torch.empty_like(q)          # q's strides when q is dense
+    if not all(_rows_aligned(t) for t in (q, k, v, o)):
+        raise ValueError("flash_attention takes tensors whose last dim is "
+                         "contiguous and whose rows start on 16 bytes")
+    if S > 65535 * 64 or B * H >= 2 ** 31:
+        raise ValueError("flash_attention: S at most 65535 tiles of 64, "
+                         "B·H below 2^31")
     if o.numel() == 0:
         return o
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, o)
+                                         for st in t.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel_fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 o.data_ptr(), B * H, S, D,
+                                 o.data_ptr(), B, H, S, D, strides,
                                  1.0 / math.sqrt(D), int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "

@@ -1,7 +1,6 @@
-#!/usr/bin/env python3
 """Where the time of the port's Qwen1.5-4B serving path goes, on one GPU.
 
-    PYTHONPATH=src python scripts/profile_torch_serve.py [--trace-dir DIR]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--trace-dir DIR]
 
 Builds Qwen1.5-4B at full width (bf16, random weights from seed 0), warms
 up, then traces one prompt pass (4 prompts of 2048 tokens) and 4 greedy
@@ -10,14 +9,12 @@ decode steps with ``torch.profiler`` (CPU and CUDA activities), with
 of its kernels, the device's busy share (device time / host time, an upper
 bound when kernels overlap), the number of device events (kernels and
 copies), and the ten with the most device time; with ``--trace-dir``, also
-writes the Chrome traces there. Then
-times the host cost of one call of each kernel wrapper and of its parts at
-the decode shape. Imports nothing of jax or of the JAX package; needs CUDA.
+writes the Chrome traces there. Imports nothing of jax or of the JAX
+package; needs CUDA.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 from pathlib import Path
 
@@ -25,14 +22,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm  # noqa: E402
-from repro_torch.launch.build import build_model  # noqa: E402
-from repro_torch.nn.module import ShardingCtx, zeros_like_spec  # noqa: E402
-from repro_torch.training.steps import (make_decode_step,  # noqa: E402
-                                        make_prefill_step)
+from ..configs import get_config
+from ..nn.module import ShardingCtx, zeros_like_spec
+from ..training.steps import make_decode_step, make_prefill_step
+from .build import build_model
 
 B, S, STEPS = 4, 2048, 4
 
@@ -60,23 +53,12 @@ def report(name: str, prof, host_s: float, trace_dir: str | None):
         prof.export_chrome_trace(str(Path(trace_dir) / f"{name}.json"))
 
 
-def host_us(fn, n: int = 2000) -> float:
-    """Host microseconds per call, the device drained before and after."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e6
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        raise SystemExit("profile_torch_serve: CUDA is not available")
+        raise SystemExit("profile_serve: CUDA is not available")
     if args.trace_dir:
         Path(args.trace_dir).mkdir(parents=True, exist_ok=True)
     ctx = ShardingCtx("cuda", use_pallas=True)
@@ -106,28 +88,6 @@ def main(argv=None):
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
     report(f"decode_x{STEPS}", prof, host_s, args.trace_dir)
-
-    x = torch.randn((B, 1, 2560), device="cuda", dtype=torch.bfloat16)
-    scale = torch.ones(2560, device="cuda")
-    scale_bf16 = scale.bfloat16()         # F.rms_norm takes x's dtype
-    dev = x.device
-
-    def enter_device():
-        with torch.cuda.device(dev):
-            pass
-
-    parts = {
-        "rmsnorm wrapper (4 x 2560)": lambda: rmsnorm(x, scale),
-        "F.rms_norm (4 x 2560)": lambda: torch.nn.functional.rms_norm(
-            x, (2560,), scale_bf16, 1e-6),
-        "torch.empty_like": lambda: torch.empty_like(x),
-        "torch.cuda.current_stream(dev)": lambda: torch.cuda.current_stream(
-            dev).cuda_stream,
-        "with torch.cuda.device(dev)": enter_device,
-        "x + x (one torch op)": lambda: x + x,
-    }
-    for name, fn in parts.items():
-        print(f"[profile] host_us {name}: {host_us(fn):.4g}", flush=True)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,10 @@ a dense ``FFN``.
 The reference stacks the layers of each pattern position and scans over
 them; the port keeps one module per layer and runs them in a Python loop,
 so the JAX tree's ``stacks.0.X[l]`` is the port's ``blocks.l.X``
-(``bridge.py`` maps one onto the other). Configurations that ask for SSM,
-RG-LRU, MLA or MoE blocks, leading dense layers, multi-token prediction,
-learned positions, tied embeddings, embedding scaling or a final softcap
-raise NotImplementedError until their slices land.
+(``bridge.py`` maps one onto the other). ``LMConfig`` holds only what
+Qwen1.5-4B sets: SSM, RG-LRU, MLA and MoE blocks, leading dense layers,
+multi-token prediction, learned positions, tied embeddings, embedding
+scaling and a final softcap come with the slices that port them.
 
 Entry points, as in the reference: ``forward`` (its ``apply``) → (logits,
 aux), ``prefill`` → (last-position logits, cache) and ``decode_step`` →
@@ -19,7 +19,6 @@ written in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
 
 import torch
 from torch import nn
@@ -36,37 +35,9 @@ class LMConfig:
     vocab: int
     d_model: int
     n_layers: int
-    pattern: tuple[str, ...] = ("attn",)
-    attn: AttentionConfig | None = None
-    local_attn: Any = None
-    mla: Any = None
-    ffn: FFNConfig | None = None
-    moe: Any = None
-    ssm: Any = None
-    rglru: Any = None
-    first_k_dense: int = 0           # deepseek-v3: leading dense layers
-    norm: str = "rmsnorm"
-    tie_embeddings: bool = False
-    pos_embedding: str | None = None  # "learned" → whisper/absolute
-    max_position: int = 8192          # only for learned positions
-    final_logit_softcap: float | None = None
-    mtp_heads: int = 0               # deepseek-v3 multi-token prediction
-    embed_scale: bool = False        # gemma-style sqrt(d) embedding scaling
+    attn: AttentionConfig
+    ffn: FFNConfig
     dtype: torch.dtype = torch.bfloat16
-
-
-def _unported(c: LMConfig) -> list[str]:
-    return [what for what, asked in (
-        (f"pattern {c.pattern}", set(c.pattern) != {"attn"}),
-        ("local_attn", c.local_attn is not None), ("mla", c.mla is not None),
-        ("moe", c.moe is not None), ("ssm", c.ssm is not None),
-        ("rglru", c.rglru is not None), ("first_k_dense", c.first_k_dense),
-        (f"norm {c.norm!r}", c.norm != "rmsnorm"),
-        ("tie_embeddings", c.tie_embeddings),
-        ("pos_embedding", c.pos_embedding is not None),
-        ("final_logit_softcap", c.final_logit_softcap is not None),
-        ("mtp_heads", c.mtp_heads), ("embed_scale", c.embed_scale),
-        ("no attn or ffn config", c.attn is None or c.ffn is None)) if asked]
 
 
 def _fp32_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -85,23 +56,21 @@ class Block(nn.Module):
     def __init__(self, cfg: LMConfig, *, device: torch.device,
                  generator: torch.Generator | None):
         super().__init__()
-        self.cfg = cfg
         self.norm1 = RMSNorm(cfg.d_model, device=device)
         self.mixer = Attention(cfg.attn, device=device, generator=generator)
         self.norm2 = RMSNorm(cfg.d_model, device=device)
         self.ffn = FFN(cfg.ffn, device=device, generator=generator)
 
-    def forward(self, h, ctx: ShardingCtx, attn_impl: str = "chunked",
-                q_chunk: int = 1024, kv_chunk: int = 1024):
-        h, _ = self.prefill(h, None, ctx, attn_impl, q_chunk, kv_chunk)
+    def forward(self, h, ctx: ShardingCtx, q_chunk: int = 1024,
+                kv_chunk: int = 1024):
+        h, _ = self.prefill(h, None, ctx, q_chunk, kv_chunk)
         return h
 
-    def prefill(self, h, cache, ctx: ShardingCtx, attn_impl: str = "chunked",
-                q_chunk: int = 1024, kv_chunk: int = 1024):
+    def prefill(self, h, cache, ctx: ShardingCtx, q_chunk: int = 1024,
+                kv_chunk: int = 1024):
         """Forward over the prompt, filling the cache when one is given."""
         y, cache = self.mixer.prefill(self.norm1(h, ctx), cache, ctx,
-                                      impl=attn_impl, q_chunk=q_chunk,
-                                      kv_chunk=kv_chunk)
+                                      q_chunk, kv_chunk)
         h = h + y
         return h + self.ffn(self.norm2(h, ctx), ctx), cache
 
@@ -110,22 +79,11 @@ class Block(nn.Module):
         h = h + y
         return h + self.ffn(self.norm2(h, ctx), ctx), cache
 
-    def cache_spec(self, batch: int, max_len: int, shards: int = 1,
-                   dtype: torch.dtype = torch.bfloat16) -> dict:
-        window = self.cfg.attn.window
-        span = max(min(max_len, window) if window else max_len, 1)
-        sh = shards if span % max(shards, 1) == 0 else 1
-        return self.mixer.cache_spec(batch, span, shards=sh, dtype=dtype)
-
 
 class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig, *, device: torch.device,
                  generator: torch.Generator | None):
         super().__init__()
-        unported = _unported(cfg)
-        if unported:
-            raise NotImplementedError(f"{cfg.name}: not ported yet: "
-                                      f"{', '.join(unported)}")
         self.cfg = c = cfg
         self.embed = Embedding(c.vocab, c.d_model, device=device,
                                generator=generator, dtype=c.dtype)
@@ -142,26 +100,25 @@ class TransformerLM(nn.Module):
     def _logits(self, h, ctx: ShardingCtx):
         return _fp32_logits(self.final_norm(h, ctx), self.head)
 
-    def forward(self, tokens, ctx: ShardingCtx, attn_impl: str = "chunked",
-                q_chunk: int = 1024, kv_chunk: int = 1024):
+    def forward(self, tokens, ctx: ShardingCtx, q_chunk: int = 1024,
+                kv_chunk: int = 1024):
         """Full forward → (logits (B, S, vocab), aux loss)."""
         h = self._embed(tokens, ctx)
         for block in self.blocks:
-            h = block(h, ctx, attn_impl, q_chunk, kv_chunk)
+            h = block(h, ctx, q_chunk, kv_chunk)
         return self._logits(h, ctx), torch.zeros((), device=h.device)
 
-    def cache_spec(self, batch: int, max_len: int, shards: int = 1,
+    def cache_spec(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
-        return {"blocks": [b.cache_spec(batch, max_len, shards, dtype)
+        return {"blocks": [b.mixer.cache_spec(batch, max_len, dtype)
                            for b in self.blocks]}
 
-    def prefill(self, tokens, cache, ctx: ShardingCtx,
-                attn_impl: str = "chunked", q_chunk: int = 1024,
+    def prefill(self, tokens, cache, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
         """Prompt pass: returns (last-position logits (B, 1, vocab), cache)."""
         h = self._embed(tokens, ctx)
         for block, c in zip(self.blocks, cache["blocks"], strict=True):
-            h, _ = block.prefill(h, c, ctx, attn_impl, q_chunk, kv_chunk)
+            h, _ = block.prefill(h, c, ctx, q_chunk, kv_chunk)
         # contiguous: the norm kernel takes whole rows
         return self._logits(h[:, -1:].contiguous(), ctx), cache
 

@@ -1,25 +1,28 @@
-"""Attention (counterpart of ``repro.nn.attention``): GQA/MHA with QKV bias,
-RoPE, causal masking, a sliding window and a logit softcap.
+"""Attention (counterpart of ``repro.nn.attention``) as Qwen1.5-4B runs it:
+causal multi-head self-attention with QKV bias and RoPE, as many kv heads as
+query heads.
 
 Execution paths, as in the reference:
   * ``plain_attention`` — the full score matrix (tests, tiny shapes);
   * ``flash_attention`` — the reference's chunked online softmax over
-    (q-chunk, kv-chunk) blocks in plain torch. Blocks wholly masked by the
-    causal mask or the window are skipped, which gives the same numbers as
-    the reference's scan over every block: there a skipped block is merged
-    with a weight of exactly 0;
+    (q-chunk, kv-chunk) blocks in plain torch. Blocks wholly above the
+    causal diagonal are skipped, which gives the same numbers as the
+    reference's scan over every block: there a skipped block is merged with
+    a weight of exactly 0;
   * with ``ctx.use_pallas``, ``Attention.forward`` (the reference's
-    ``apply``) runs the FlashAttention-2
-    CUDA kernel (``kernels/flash_attention``), where the reference would
-    have run its chunked path. The kernel computes only plain causal
-    self-attention over one sequence length with equal q and kv heads, so
-    the call raises unless those conditions hold;
+    ``apply``) and ``prefill`` run the FlashAttention-2 CUDA kernel
+    (``kernels/flash_attention``) where the reference would have run its
+    chunked path. The kernel computes plain causal self-attention over one
+    sequence length with equal q and kv heads, which is all this module
+    computes;
   * ``Attention.decode`` — new tokens against a dense KV cache
-    (B, shards, span, KV, D), in plain torch as in the reference. The port
+    (B, 1, max_len, H, D), in plain torch as in the reference. The port
     writes the new keys and values into the cache in place (the reference
     returns an updated copy): a full-width cache is gigabytes.
 
-MLA, cross-attention and ``qk_norm`` come with the models that use them.
+Grouped kv heads, a sliding window and its ring cache, a logit softcap, an
+output bias, ``qk_norm``, MLA and cross-attention come with the first ported
+model that uses them; a config with fewer kv heads than heads raises.
 """
 from __future__ import annotations
 
@@ -38,12 +41,6 @@ from .rotary import apply_rope
 NEG_INF = -2.0e38  # large negative for masking in fp32
 
 
-def _softcap(x, cap):
-    if cap is None:
-        return x
-    return cap * torch.tanh(x / cap)
-
-
 @dataclass(frozen=True)
 class AttentionConfig:
     d_model: int
@@ -51,36 +48,23 @@ class AttentionConfig:
     n_kv_heads: int
     head_dim: int
     use_bias: bool = False          # qwen1.5: bias on QKV only
-    out_bias: bool = False
-    qk_norm: bool = False           # qwen3
-    rope: bool = True
     rope_base: float = 10000.0
-    window: int | None = None       # sliding-window local attention
-    logit_softcap: float | None = None
-    causal: bool = True
     dtype: torch.dtype | None = None
 
 
-def _block_attn(q, k, v, qpos, kpos, scale, causal, window, softcap):
+def _block_attn(q, k, v, qpos, kpos, scale, causal):
     """One (q-block, kv-block) step. q: (B,H,Q,D), k/v: (B,H,K,D). Returns
     the unnormalised output and the row max and sum, all fp32."""
     s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
-    s = _softcap(s, softcap)
-    mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device)
     if causal:
-        mask &= qpos[:, None] >= kpos[None, :]
-    if window is not None:
-        mask &= qpos[:, None] - kpos[None, :] < window
-    s = torch.where(mask, s, NEG_INF)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
-    p = torch.where(torch.isfinite(m)[..., None], p, 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v).float()
     return o, m, p.sum(-1)
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                    q_chunk=1024, kv_chunk=1024, base_pos=0):
+def flash_attention(q, k, v, *, causal=True, q_chunk=1024, kv_chunk=1024):
     """Chunked flash attention. q: (B, Sq, H, D); k, v: (B, Skv, H, D).
 
     Chunks are cut to the largest divisor of the sequence length, and query
@@ -94,8 +78,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     outs = []
     for q_start in range(0, Sq, q_chunk):
         qi = qh[:, :, q_start:q_start + q_chunk]
-        qpos = base_pos + kv_off + q_start + torch.arange(q_chunk,
-                                                          device=q.device)
+        qpos = kv_off + q_start + torch.arange(q_chunk, device=q.device)
         o_acc = torch.zeros(qi.shape[:-1] + (v.shape[-1],),
                             dtype=torch.float32, device=q.device)
         m_acc = torch.full(qi.shape[:-1], NEG_INF, dtype=torch.float32,
@@ -105,17 +88,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
         for k_start in range(0, Skv, kv_chunk):
             if causal and k_start > kv_off + q_start + q_chunk - 1:
                 continue
-            if window is not None and \
-                    k_start + kv_chunk - 1 < kv_off + q_start - window + 1:
-                continue
-            kpos = base_pos + k_start + torch.arange(kv_chunk, device=q.device)
+            kpos = k_start + torch.arange(kv_chunk, device=q.device)
             o, m, s = _block_attn(qi, kh[:, :, k_start:k_start + kv_chunk],
                                   vh[:, :, k_start:k_start + kv_chunk], qpos,
-                                  kpos, scale, causal, window, softcap)
+                                  kpos, scale, causal)
             m_new = torch.maximum(m_acc, m)
-            sc_old = torch.where(torch.isfinite(m_acc),
-                                 torch.exp(m_acc - m_new), 0.0)
-            sc_new = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+            sc_old, sc_new = torch.exp(m_acc - m_new), torch.exp(m - m_new)
             o_acc = o_acc * sc_old[..., None] + o * sc_new[..., None]
             s_acc = s_acc * sc_old + s * sc_new
             m_acc = m_new
@@ -123,16 +101,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
 
 
-def plain_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                    base_pos=0):
+def plain_attention(q, k, v, *, causal=True):
     """Full-matrix attention. q: (B, Sq, H, D); k, v: (B, Skv, H, D)."""
     Sq, Skv = q.shape[1], k.shape[1]
-    qpos = base_pos + Skv - Sq + torch.arange(Sq, device=q.device)
-    kpos = base_pos + torch.arange(Skv, device=q.device)
+    qpos = Skv - Sq + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
     o, m, s = _block_attn(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), qpos, kpos,
-                          1.0 / math.sqrt(q.shape[-1]), causal, window,
-                          softcap)
+                          1.0 / math.sqrt(q.shape[-1]), causal)
     o = o / torch.clamp(s, min=1e-30)[..., None]
     return o.transpose(1, 2).to(q.dtype)
 
@@ -146,8 +122,10 @@ class Attention(nn.Module):
                  generator: torch.Generator | None):
         super().__init__()
         c = self.cfg = cfg
-        if c.qk_norm:
-            raise NotImplementedError("qk_norm attention is not ported yet")
+        if c.n_kv_heads != c.n_heads:
+            raise NotImplementedError(
+                f"grouped kv heads ({c.n_kv_heads} for {c.n_heads} heads) "
+                f"are not ported yet")
         kw = dict(generator=generator, device=device, dtype=c.dtype)
         self.wq = fan_in_normal((c.d_model, c.n_heads, c.head_dim), (0,),
                                 **kw)
@@ -163,151 +141,80 @@ class Attention(nn.Module):
                                c.dtype)
             self.bv = constant((c.n_kv_heads, c.head_dim), 0.0, device,
                                c.dtype)
-        if c.out_bias:
-            self.bo = constant((c.d_model,), 0.0, device, c.dtype)
 
-    # -- shared projection helpers ---------------------------------------
     def _qkv(self, x, positions):
-        """x: (B, S, d) → q (B, S, H, hd), k and v (B, S, KV, hd)."""
-        c = self.cfg
+        """x: (B, S, d) → q, k and v (B, S, H, hd), q and k rotated."""
         q, k, v = ((x @ w.flatten(1)).unflatten(-1, w.shape[1:])
                    for w in (self.wq, self.wk, self.wv))
-        if c.use_bias:
+        if self.cfg.use_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        if c.rope:
-            q = apply_rope(q, positions, c.rope_base)
-            k = apply_rope(k, positions, c.rope_base)
-        return q, k, v
+        base = self.cfg.rope_base
+        return apply_rope(q, positions, base), apply_rope(k, positions,
+                                                          base), v
 
     def _out(self, o):
-        y = o.flatten(2) @ self.wo.flatten(0, 1)
-        return y + self.bo if self.cfg.out_bias else y
-
-    def _expand_kv(self, k):
-        rep = self.cfg.n_heads // self.cfg.n_kv_heads
-        return k.repeat_interleave(rep, dim=2) if rep > 1 else k
-
-    def _attend(self, q, k, v, ctx: ShardingCtx, impl: str, q_chunk: int,
-                kv_chunk: int):
-        c = self.cfg
-        k, v = self._expand_kv(k), self._expand_kv(v)
-        if ctx.use_pallas:
-            unmet = [what for what, bad in (
-                ("causal", not c.causal), ("no window", c.window is not None),
-                ("no softcap", c.logit_softcap is not None),
-                ("Sq == Skv", q.shape[1] != k.shape[1]),
-                ("n_heads == n_kv_heads", q.shape[2] != k.shape[2]))
-                if bad]
-            if unmet:
-                raise ValueError(f"the flash_attention kernel needs "
-                                 f"{', '.join(unmet)}; run with "
-                                 f"use_pallas=False")
-            o = flash_attention_kernel(
-                *(t.transpose(1, 2).contiguous() for t in (q, k, v)),
-                causal=True)
-            return o.transpose(1, 2)
-        kw = dict(causal=c.causal, window=c.window, softcap=c.logit_softcap)
-        if impl == "plain":
-            return plain_attention(q, k, v, **kw)
-        return flash_attention(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                               **kw)
+        return o.flatten(2) @ self.wo.flatten(0, 1)
 
     # -- training / prefill forward (the reference's ``apply``) -------------
-    def forward(self, x, ctx: ShardingCtx, positions=None,
-                impl: str = "chunked", q_chunk: int = 1024,
+    def forward(self, x, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
-        y, _ = self.prefill(x, None, ctx, positions, impl, q_chunk, kv_chunk)
+        y, _ = self.prefill(x, None, ctx, q_chunk, kv_chunk)
         return y
 
-    def prefill(self, x, cache, ctx: ShardingCtx, positions=None,
-                impl: str = "chunked", q_chunk: int = 1024,
+    def prefill(self, x, cache, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
         """Attention over the prompt; with a cache, also writes the prompt's
-        keys and values into it (in place) as the reference's
-        ``_attn_prefill`` lays them out. Returns (y, cache)."""
+        keys and values into its first S positions (in place), as the
+        reference's ``_attn_prefill`` lays them out. Returns (y, cache)."""
         S = x.shape[1]
-        if positions is None:
-            positions = torch.arange(S, device=x.device)[None, :]
-        q, k, v = self._qkv(x, positions)
+        q, k, v = self._qkv(x, torch.arange(S, device=x.device)[None, :])
         if cache is not None:
-            self._write_prompt(cache, k, v)
-        o = self._attend(q, k, v, ctx, impl, q_chunk, kv_chunk)
+            cache["k"][:, 0, :S] = k
+            cache["v"][:, 0, :S] = v
+        if ctx.use_pallas:
+            # the kernel takes (B, H, S, D) views of the (B, S, H, D)
+            # tensors as they are, and its output is such a view too
+            o = flash_attention_kernel(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2),
+                                       causal=True).transpose(1, 2)
+        else:
+            o = flash_attention(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk)
         return self._out(o), cache
 
     # -- KV cache -----------------------------------------------------------
-    def cache_spec(self, batch: int, max_len: int, shards: int = 1,
+    def cache_spec(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
-        """Cache layout as meta tensors: k and v of (B, shards,
-        max_len/shards, KV, hd). shards=1 is the per-head layout."""
+        """Cache layout as meta tensors: k and v of (B, 1, max_len, KV, hd),
+        the reference's layout with one shard."""
         c = self.cfg
-        if max_len % shards:
-            raise ValueError("max_len must divide shards")
-        shape = (batch, shards, max_len // shards, c.n_kv_heads, c.head_dim)
+        shape = (batch, 1, max_len, c.n_kv_heads, c.head_dim)
         return {name: torch.empty(shape, dtype=dtype, device="meta")
                 for name in ("k", "v")}
-
-    def _write_prompt(self, cache, k, v):
-        B, S = k.shape[:2]
-        flat_k, flat_v = (cache[n].view(B, -1, *cache[n].shape[3:])
-                          for n in ("k", "v"))
-        total = flat_k.shape[1]
-        if self.cfg.window is not None and S >= total:
-            # ring layout: slot s holds token (S - total) + ((s - S) % total)
-            start = S - total
-            slots = torch.arange(total, device=k.device)
-            tok = start + (slots - start) % total
-            flat_k.copy_(k[:, tok])
-            flat_v.copy_(v[:, tok])
-        else:
-            flat_k[:, :S] = k
-            flat_v[:, :S] = v
 
     def decode(self, x, cache, pos, ctx: ShardingCtx):
         """x: (B, C, d): C new tokens per sequence; pos: an int or a (B,)
         tensor, the index of each sequence's first new token. Token j of row
-        b lands at position pos[b] + j. Window attention writes a ring
-        buffer. Returns (y, cache), the cache updated in place."""
-        c = self.cfg
+        b lands at position pos[b] + j. Returns (y, cache), the cache updated
+        in place."""
         B, C, _ = x.shape
         if not isinstance(pos, torch.Tensor):   # no copy from the host
             pos = torch.full((), pos, dtype=torch.int64, device=x.device)
         positions = (pos.to(x.device, torch.int64).reshape(-1, 1)
                      + torch.arange(C, device=x.device)).expand(B, C)
         q, k_new, v_new = self._qkv(x, positions)
-        shards, span = cache["k"].shape[1:3]
-        total = shards * span
-        write = positions % total if c.window is not None else positions
+        kc, vc = cache["k"][:, 0], cache["v"][:, 0]     # (B, T, H, hd) views
         rows = torch.arange(B, device=x.device)[:, None]
-        for name, new in (("k", k_new), ("v", v_new)):
-            flat = cache[name].view(B, total, *cache[name].shape[3:])
-            flat[rows, write] = new.to(flat.dtype)
+        kc[rows, positions] = k_new.to(kc.dtype)
+        vc[rows, positions] = v_new.to(vc.dtype)
 
-        rep = c.n_heads // c.n_kv_heads
-        kc = cache["k"].view(B, total, *cache["k"].shape[3:]).to(q.dtype)
-        vc = cache["v"].view(B, total, *cache["v"].shape[3:]).to(q.dtype)
-        if rep > 1:
-            kc = kc.repeat_interleave(rep, dim=2)
-            vc = vc.repeat_interleave(rep, dim=2)
-        # the token index each slot holds (ring-aware when windowed: relative
-        # to the last token written, which owns the ring)
-        slot = torch.arange(total, device=x.device)
-        if c.window is not None:
-            p_last = positions[:, -1:]                       # (B, 1)
-            kpos = p_last - (p_last - slot[None]) % total     # (B, total)
-        else:
-            kpos = slot[None].expand(B, total)
-        qpos = positions[:, :, None]                          # (B, C, 1)
-        valid = (kpos[:, None] <= qpos) & (kpos[:, None] >= 0)
-        if c.window is not None:
-            valid &= kpos[:, None] > qpos - c.window          # (B, C, total)
-
-        s = torch.einsum("bchd,bthd->bhct", q, kc).float() \
-            * (1.0 / math.sqrt(c.head_dim))
-        s = _softcap(s, c.logit_softcap)
+        # key t is visible to the query at position p when t <= p
+        valid = torch.arange(kc.shape[1], device=x.device) \
+            <= positions[:, :, None]                          # (B, C, T)
+        s = torch.einsum("bchd,bthd->bhct", q, kc.to(q.dtype)).float() \
+            * (1.0 / math.sqrt(self.cfg.head_dim))
         s = torch.where(valid[:, None], s, NEG_INF)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        p = torch.where(torch.isfinite(m), p, 0.0)
-        o = torch.einsum("bhct,bthd->bchd", p.to(q.dtype), vc).float()
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bhct,bthd->bchd", p.to(q.dtype),
+                         vc.to(q.dtype)).float()
         o = o / torch.clamp(p.sum(-1), min=1e-30).transpose(1, 2)[..., None]
         return self._out(o.to(q.dtype)), cache

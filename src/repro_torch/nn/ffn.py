@@ -1,6 +1,7 @@
-"""Feed-forward block (counterpart of ``repro.nn.ffn``): the dense FFN, GLU
-or plain, with the reference's weights w_in/w_gate (d, ff) and w_out
-(ff, d). Mixture-of-Experts comes with the MoE models."""
+"""Feed-forward block (counterpart of ``repro.nn.ffn``): the dense SiLU-GLU
+FFN of Qwen1.5-4B, with the reference's weights w_in/w_gate (d, ff) and
+w_out (ff, d), no bias. Other activations, the plain (non-GLU) FFN, biases
+and Mixture-of-Experts come with the models that use them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -8,12 +9,14 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from .module import ShardingCtx, constant, fan_in_normal
+from .module import ShardingCtx, fan_in_normal
+
 
 # jax.nn.silu's formula, x·(1/(1 + exp(−x))), rounded step by step in x's
 # dtype as XLA does: in bf16 F.silu (one rounding) differs from it in a
-# third of the elements. The other activations come with their models.
-_ACTS = {"silu": lambda x: x * (1 / (1 + torch.exp(-x)))}
+# third of the elements.
+def _silu(x):
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 @dataclass(frozen=True)
@@ -21,37 +24,23 @@ class FFNConfig:
     d_model: int
     d_ff: int
     activation: str = "silu"
-    glu: bool = True
-    use_bias: bool = False
     dtype: torch.dtype | None = None
 
 
 class FFN(nn.Module):
-    """act(x·w_in [+ b_in]) [⊙ x·w_gate] · w_out [+ b_out]."""
+    """silu(x·w_in) ⊙ (x·w_gate) · w_out."""
 
     def __init__(self, cfg: FFNConfig, *, device: torch.device,
                  generator: torch.Generator | None):
         super().__init__()
         c = self.cfg = cfg
-        if c.activation not in _ACTS:
+        if c.activation != "silu":
             raise NotImplementedError(f"activation {c.activation!r} is not "
                                       f"ported yet")
         kw = dict(generator=generator, device=device, dtype=c.dtype)
         self.w_in = fan_in_normal((c.d_model, c.d_ff), (0,), **kw)
+        self.w_gate = fan_in_normal((c.d_model, c.d_ff), (0,), **kw)
         self.w_out = fan_in_normal((c.d_ff, c.d_model), (0,), **kw)
-        if c.glu:
-            self.w_gate = fan_in_normal((c.d_model, c.d_ff), (0,), **kw)
-        if c.use_bias:
-            self.b_in = constant((c.d_ff,), 0.0, device, c.dtype)
-            self.b_out = constant((c.d_model,), 0.0, device, c.dtype)
 
     def forward(self, x, ctx: ShardingCtx):
-        c = self.cfg
-        h = x @ self.w_in
-        if c.use_bias:
-            h = h + self.b_in
-        h = _ACTS[c.activation](h)
-        if c.glu:
-            h = h * (x @ self.w_gate)
-        y = h @ self.w_out
-        return y + self.b_out if c.use_bias else y
+        return (_silu(x @ self.w_in) * (x @ self.w_gate)) @ self.w_out

@@ -1,14 +1,9 @@
-"""The port's attention against the JAX package's, on the same seeded numpy
-inputs and the same weights (carried over by repro_torch.bridge):
-
-* the kernel's plain version (``attention_ref``, where the wrapper sends CPU
-  tensors) against the reference's ``attention_ref`` and its chunked
-  ``nn.attention.flash_attention`` (the Pallas flash kernel does not run on
-  this jax, ROADMAP caveat 3.a);
-* the port's chunked ``flash_attention`` and ``plain_attention`` against the
-  reference's, with causal, window, softcap and ragged-chunk cases;
-* ``Attention.forward`` (the reference's ``apply``) with ``use_pallas`` off
-  and on, and ``Attention.decode`` after a prompt written into the cache.
+"""The flash_attention kernel's wrapper and plain version against the JAX
+package, on the same seeded numpy inputs: on CPU tensors the wrapper runs
+the plain version (``attention_ref``), held against the reference's
+``attention_ref`` and its chunked ``nn.attention.flash_attention`` (the
+Pallas flash kernel does not run on this jax, ROADMAP caveat 3.a). The
+module-level attention is in ``test_torch_attention*.py``.
 
 Bars: fp32 1e-5 (the same algorithm; XLA's and torch's exp differ in the
 last bit). bf16: one bf16 ulp (8 significant bits: 2^-7 relative) where
@@ -18,30 +13,30 @@ softmax, as the reference's chunked and
 plain paths do: a score of |q·k| ≈ 8-16 has a bf16 ulp of 2^-4, so one flip
 of that rounding (the two frameworks sum the dot in another order) moves
 its softmax weight by ~1.6 % (scale 1/4), and the output by up to ~3e-2."""
-import dataclasses
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
-from repro.models.transformer import _attn_prefill as j_attn_prefill
 from repro.nn import attention as jatt
-from repro.nn.module import NULL_CTX, tree_init
-from repro_torch.bridge import load_jax_params
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.nn import attention as tatt
-from repro_torch.nn.module import ShardingCtx, zeros_like_spec
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16_ULP = dict(rtol=2 ** -7, atol=2 ** -8)
 BF16_SCORES = dict(rtol=3e-2, atol=3e-2)
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers on one box: keep torch's share small."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(a):
@@ -82,133 +77,9 @@ def test_kernel_plain_version_matches_reference(shape, causal, dtype):
                                **(F32 if dtype == "float32" else BF16_SCORES))
 
 
-@pytest.mark.parametrize("dtype", sorted(DT))
-@pytest.mark.parametrize("kw", [
-    dict(causal=True), dict(causal=False), dict(causal=True, window=5),
-    dict(causal=True, softcap=2.0), dict(causal=True, base_pos=3)])
-@pytest.mark.parametrize("sq,skv,chunk", [(24, 24, 8), (21, 21, 8),
-                                          (8, 24, 4)])
-def test_chunked_and_plain_attention_match_reference(sq, skv, chunk, kw,
-                                                     dtype):
-    """(B, S, H, D) layout; Sq < Skv puts the queries at the end."""
-    jdt, tdt = DT[dtype]
-    rng = np.random.default_rng(1)
-    q = rng.standard_normal((2, sq, 3, 16)).astype(np.float32)
-    k, v = (rng.standard_normal((2, skv, 3, 16)).astype(np.float32)
-            for _ in range(2))
-    jargs = [jnp.asarray(a, jdt) for a in (q, k, v)]
-    targs = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
-    tol = F32 if dtype == "float32" else BF16_SCORES
-    o_j = jatt.flash_attention(*jargs, q_chunk=chunk, kv_chunk=chunk, **kw)
-    o_t = tatt.flash_attention(*targs, q_chunk=chunk, kv_chunk=chunk, **kw)
-    np.testing.assert_allclose(_np(o_t), _np(o_j), **tol)
-    np.testing.assert_allclose(_np(tatt.plain_attention(*targs, **kw)),
-                               _np(jatt.plain_attention(*jargs, **kw)), **tol)
-
-
-def _attention_pair(dtype, **cfg_kw):
-    """A JAX Attention and the port's, with the JAX weights carried over."""
-    jdt, tdt = DT[dtype]
-    kv_heads = cfg_kw.pop("n_kv_heads", 4)
-    jcfg = jatt.AttentionConfig(32, 4, kv_heads, 8, use_bias=True, dtype=jdt,
-                                **cfg_kw)
-    tcfg = tatt.AttentionConfig(32, 4, kv_heads, 8, use_bias=True, dtype=tdt,
-                                **cfg_kw)
-    jmod = jatt.Attention(jcfg)
-    params = tree_init(jmod.params_spec(), jax.random.PRNGKey(0))
-    # the reference initialises biases to zero: give them values
-    rng = np.random.default_rng(2)
-    params = {k: (jnp.asarray(0.1 * rng.standard_normal(p.shape), p.dtype)
-                  if k.startswith("b") else p) for k, p in params.items()}
-    tmod = tatt.Attention(tcfg, device=CPU, generator=torch.Generator())
-    load_jax_params(tmod, jax.tree.map(np.asarray, params))
-    return jmod, params, tmod
-
-
-@pytest.mark.parametrize("dtype", sorted(DT))
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_attention_forward_matches_reference(use_pallas, dtype):
-    jdt, tdt = DT[dtype]
-    jmod, params, tmod = _attention_pair(dtype)
-    x = np.random.default_rng(3).standard_normal((2, 24, 32)).astype(
-        np.float32)
-    y_j = jmod.apply(params, jnp.asarray(x, jdt), NULL_CTX, q_chunk=8,
-                     kv_chunk=8)
-    with torch.no_grad():
-        y_t = tmod(torch.from_numpy(x).to(tdt),
-                   ShardingCtx("cpu", use_pallas=use_pallas), q_chunk=8,
-                   kv_chunk=8)
-    tol = F32 if dtype == "float32" else BF16_SCORES
-    np.testing.assert_allclose(_np(y_t), _np(y_j), **tol)
-
-
-@pytest.mark.parametrize("dtype", sorted(DT))
-@pytest.mark.parametrize("cfg_kw,S,span", [
-    (dict(), 10, 16),                          # MHA, cache longer than prompt
-    (dict(n_kv_heads=2), 10, 16),              # GQA: kv heads repeated
-    (dict(window=6), 10, 16),                  # window: a ring of 6 slots
-    (dict(logit_softcap=3.0), 10, 16)])
-def test_attention_decode_matches_reference(cfg_kw, S, span, dtype):
-    """A prompt of S tokens written by the prefill, then three decode steps
-    of one token; outputs and the cache after each."""
-    jdt, tdt = DT[dtype]
-    jmod, params, tmod = _attention_pair(dtype, **cfg_kw)
-    c = jmod.cfg
-    cache_len = min(span, c.window) if c.window else span
-    rng = np.random.default_rng(4)
-    x = rng.standard_normal((2, S, 32)).astype(np.float32)
-    steps = rng.standard_normal((3, 2, 1, 32)).astype(np.float32)
-    tol = F32 if dtype == "float32" else BF16_ULP
-
-    jcache = jax.tree.map(jnp.zeros_like, tree_init(
-        jmod.cache_spec(2, cache_len, dtype=jdt), jax.random.PRNGKey(0)))
-    _, jcache = j_attn_prefill(jmod, params, jnp.asarray(x, jdt), jcache,
-                               NULL_CTX, "chunked", 8, 8)
-    tcache = zeros_like_spec(tmod.cache_spec(2, cache_len, dtype=tdt), CPU)
-    ctx = ShardingCtx("cpu")
-    with torch.no_grad():
-        tmod.prefill(torch.from_numpy(x).to(tdt), tcache, ctx, q_chunk=8,
-                     kv_chunk=8)
-        for i, xs in enumerate(steps):
-            y_j, jcache = jmod.decode(params, jnp.asarray(xs, jdt), jcache,
-                                      S + i)
-            y_t, tcache = tmod.decode(torch.from_numpy(xs).to(tdt), tcache,
-                                      S + i, ctx)
-            np.testing.assert_allclose(
-                _np(y_t), _np(y_j), **(F32 if tol is F32 else BF16_SCORES))
-            for name in ("k", "v"):
-                np.testing.assert_allclose(_np(tcache[name]),
-                                           _np(jcache[name]), **tol)
-
-
-@pytest.mark.parametrize("cfg_kw,what", [
-    (dict(window=4), "no window"), (dict(logit_softcap=2.0), "no softcap"),
-    (dict(causal=False), "causal"), (dict(n_kv_heads=2), None)])
-def test_kernel_path_checks_its_conditions(cfg_kw, what):
-    """use_pallas sends only what the kernel computes to it; GQA is expanded
-    to equal heads first, so it runs."""
-    cfg = tatt.AttentionConfig(32, 4, cfg_kw.pop("n_kv_heads", 4), 8,
-                               dtype=torch.float32, **cfg_kw)
-    mod = tatt.Attention(cfg, device=CPU, generator=torch.Generator())
-    x = torch.randn(1, 6, 32)
-    ctx = ShardingCtx("cpu", use_pallas=True)
-    with torch.no_grad():
-        if what is None:
-            ref = mod(x, ShardingCtx("cpu"), impl="plain")
-            torch.testing.assert_close(mod(x, ctx), ref, **F32)
-        else:
-            with pytest.raises(ValueError, match=what):
-                mod(x, ctx)
-
-
 def test_flash_wrapper_rejects_what_it_cannot_take():
     q = torch.randn(1, 2, 8, 16)
     with pytest.raises(ValueError, match="one shape"):
         flash_attention(q, q[:, :1], q)
     with pytest.raises(NotImplementedError, match="backward"):
         flash_attention(q.requires_grad_(), q, q)
-
-
-def test_attention_config_fields_match_reference():
-    assert [f.name for f in dataclasses.fields(tatt.AttentionConfig)] == \
-        [f.name for f in dataclasses.fields(jatt.AttentionConfig)]

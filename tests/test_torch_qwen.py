@@ -29,7 +29,6 @@ from repro_torch.bridge import flatten, load_jax_params
 from repro_torch.configs import get_config
 from repro_torch.launch.build import build_model
 from repro_torch.models.transformer import TransformerLM
-from repro_torch.nn.attention import AttentionConfig
 from repro_torch.nn.module import ShardingCtx, zeros_like_spec
 from repro_torch.training.steps import make_decode_step, make_prefill_step
 
@@ -39,6 +38,15 @@ TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=5e-2, atol=0.1)}
 CPU = torch.device("cpu")
 N_FULL = 3_950_369_280
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several workers on one box: keep torch's share small."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _in_dtype(cfg, dtype):
@@ -185,32 +193,6 @@ def test_bridge_rejects_a_mismatched_lm_tree():
             np.float32)))
 
 
-def test_qwen_config_matches_jax():
-    jc, tc = j_get_config("qwen1.5-4b"), get_config("qwen1.5-4b")
-    assert (tc.name, tc.family, tc.source) == (jc.name, jc.family, jc.source)
-    for jm, tm in ((jc.model, tc.model), (jc.smoke_model, tc.smoke_model)):
-        for f in ("name", "vocab", "d_model", "n_layers", "pattern", "norm",
-                  "tie_embeddings", "first_k_dense"):
-            assert getattr(tm, f) == getattr(jm, f), f
-        for sub in ("attn", "ffn"):
-            for f in dataclasses.fields(getattr(jm, sub)):
-                if f.name != "dtype":
-                    assert getattr(getattr(tm, sub), f.name) == \
-                        getattr(getattr(jm, sub), f.name), (sub, f.name)
-        assert tm.dtype == tm.attn.dtype == tm.ffn.dtype == torch.bfloat16
-    assert tc.model.attn.rope_base == 10000.0
-
-
-@pytest.mark.parametrize("change", [
-    dict(attn=AttentionConfig(64, 4, 4, 16, qk_norm=True)),
-    dict(pattern=("attn", "ssm")), dict(moe=object()), dict(mtp_heads=1),
-    dict(tie_embeddings=True)])
-def test_unported_lm_features_raise(change):
-    cfg = dataclasses.replace(get_config("qwen1.5-4b").smoke_model, **change)
-    with pytest.raises(NotImplementedError):
-        TransformerLM(cfg, device=torch.device("meta"), generator=None)
-
-
 def test_lm_build_needs_cuda_unless_the_cpu_is_asked_for(monkeypatch):
     cfg = get_config("qwen1.5-4b")
     model = build_model(cfg, ShardingCtx("cpu"), smoke=True, seed=0)
@@ -226,17 +208,3 @@ def test_same_seed_same_weights_on_the_cpu():
                         smoke=True, seed=3) for _ in range(2))
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), name
-
-
-def test_bridge_unstacks_pattern_positions_in_layer_order():
-    """With a pattern of two kinds the reference stacks layers 0, 2, 4 at
-    stacks/0 and 1, 3, 5 at stacks/1; they land on blocks 0..5 in order."""
-    model = torch.nn.Module()
-    model.blocks = torch.nn.ModuleList(torch.nn.Module() for _ in range(6))
-    for blk in model.blocks:
-        blk.w = torch.nn.Parameter(torch.zeros(2, dtype=torch.bfloat16))
-    layer = np.arange(6, dtype=np.float32)[:, None] * np.ones(2, np.float32)
-    tree = {"stacks": [{"w": jnp.asarray(layer[p::2], jnp.bfloat16)}
-                       for p in range(2)]}
-    load_jax_params(model, jax.tree.map(np.asarray, tree))
-    assert [float(b.w.detach()[0]) for b in model.blocks] == [0, 1, 2, 3, 4, 5]
