@@ -1,6 +1,6 @@
 """The LMs of the JAX package's ``configs/lm_archs.py`` ported so far, copied
-field by field: Qwen1.5-4B, whose attention blocks the port runs. The other
-LMs register with the slices that port their blocks."""
+field by field: Mamba-2 780m (SSD blocks) and Qwen1.5-4B (attention
+blocks). The other LMs register with the slices that port their blocks."""
 from __future__ import annotations
 
 import torch
@@ -8,9 +8,27 @@ import torch
 from ..models.transformer import LMConfig
 from ..nn.attention import AttentionConfig
 from ..nn.ffn import FFNConfig
+from ..nn.ssm import SSMConfig
 from .base import ArchConfig, register
 
 BF16 = torch.bfloat16
+
+
+# mamba2-780m — SSD, attention-free [arXiv:2405.21060; unverified]
+@register("mamba2-780m")
+def mamba2_780m() -> ArchConfig:
+    def mk(d_model, n_layers, vocab, d_state, chunk=256):
+        return LMConfig(
+            name="mamba2-780m", vocab=vocab, d_model=d_model,
+            n_layers=n_layers, pattern=("ssm",),
+            ssm=SSMConfig(d_model, d_state=d_state, head_dim=64, expand=2,
+                          chunk=chunk, dtype=BF16),
+            tie_embeddings=True, dtype=BF16)
+    return ArchConfig(
+        name="mamba2-780m", family="lm",
+        model=mk(1536, 48, 50280, 128),
+        smoke_model=mk(64, 4, 512, 16, chunk=16),
+        source="[arXiv:2405.21060; unverified]")
 
 
 # qwen1.5-4b — dense, QKV bias, kv=heads (MHA) [hf:Qwen/Qwen1.5-0.5B; hf]

@@ -1,20 +1,25 @@
-"""Decoder-only LM (counterpart of ``repro.models.transformer``) for the dense
-attention family: pre-norm blocks of kind "attn", each an ``Attention`` and
-a dense ``FFN``.
+"""Decoder-only LM (counterpart of ``repro.models.transformer``) for the
+families ported so far: pre-norm blocks of kind "attn" (an ``Attention``
+and a dense ``FFN``, Qwen1.5-4B) and "ssm" (a Mamba-2 ``SSDBlock`` and no
+FFN, Mamba-2 780m), repeated as ``cfg.pattern`` says.
 
 The reference stacks the layers of each pattern position and scans over
 them; the port keeps one module per layer and runs them in a Python loop,
-so the JAX tree's ``stacks.0.X[l]`` is the port's ``blocks.l.X``
+so the JAX tree's ``stacks.p.X[g]`` is the port's ``blocks.(g·period + p).X``
 (``bridge.py`` maps one onto the other). ``LMConfig`` holds only what
-Qwen1.5-4B sets: SSM, RG-LRU, MLA and MoE blocks, leading dense layers,
-multi-token prediction, learned positions, tied embeddings, embedding
-scaling and a final softcap come with the slices that port them.
+Qwen1.5-4B and Mamba-2 780m set: the other block kinds ("local_attn",
+"mla", "moe", "rec") raise ``NotImplementedError`` at construction, and
+leading dense layers, multi-token prediction, learned positions, embedding
+scaling and a final softcap come with the slices that port them. With tied
+embeddings the head is the embedding table, as in the reference.
 
 Entry points, as in the reference: ``forward`` (its ``apply``) → (logits,
 aux), ``prefill`` → (last-position logits, cache) and ``decode_step`` →
-(logits, cache), logits in fp32. A cache is ``{"blocks": [{"k", "v"}, ...]}``
-with one entry per layer, made by ``zeros_like_spec(cache_spec(...))`` and
-written in place.
+(logits, cache), logits in fp32. A cache is ``{"blocks": [...]}`` with one
+entry per layer ({"k", "v"} for attention, {"state", "conv_x", "conv_B",
+"conv_C"} in fp32 for the SSM), made by ``zeros_like_spec(cache_spec(...))``
+and written in place. The SSM's prompt pass starts from the state in its
+cache, so a cache is zeroed (or made anew) before each prompt pass.
 """
 from __future__ import annotations
 
@@ -27,6 +32,10 @@ from ..nn.attention import Attention, AttentionConfig
 from ..nn.ffn import FFN, FFNConfig
 from ..nn.layers import Embedding, RMSNorm
 from ..nn.module import ShardingCtx, fan_in_normal
+from ..nn.ssm import SSDBlock, SSMConfig
+
+# the reference's block kinds; the port builds "attn" and "ssm"
+KINDS = ("attn", "local_attn", "mla", "moe", "ssm", "rec")
 
 
 @dataclass(frozen=True)
@@ -35,9 +44,17 @@ class LMConfig:
     vocab: int
     d_model: int
     n_layers: int
-    attn: AttentionConfig
-    ffn: FFNConfig
+    pattern: tuple[str, ...] = ("attn",)
+    attn: AttentionConfig | None = None
+    ffn: FFNConfig | None = None
+    ssm: SSMConfig | None = None
+    tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+
+    def block_kinds(self) -> list[str]:
+        """Per-layer kind list of length n_layers."""
+        return [self.pattern[i % len(self.pattern)]
+                for i in range(self.n_layers)]
 
 
 def _fp32_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -51,12 +68,16 @@ def _fp32_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """h + attn(norm1(h)), then + ffn(norm2(h))."""
+    """Kind "attn": h + attn(norm1(h)), then + ffn(norm2(h)). Kind "ssm":
+    h + ssd(norm1(h)), no FFN (Mamba-2's d_ff is 0)."""
 
-    def __init__(self, cfg: LMConfig, *, device: torch.device,
+    def __init__(self, cfg: LMConfig, kind: str, *, device: torch.device,
                  generator: torch.Generator | None):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, device=device)
+        if kind == "ssm":
+            self.mixer = SSDBlock(cfg.ssm, device=device, generator=generator)
+            return
         self.mixer = Attention(cfg.attn, device=device, generator=generator)
         self.norm2 = RMSNorm(cfg.d_model, device=device)
         self.ffn = FFN(cfg.ffn, device=device, generator=generator)
@@ -66,18 +87,30 @@ class Block(nn.Module):
         h, _ = self.prefill(h, None, ctx, q_chunk, kv_chunk)
         return h
 
+    def _ffn(self, h, ctx: ShardingCtx):
+        if isinstance(self.mixer, SSDBlock):
+            return h
+        return h + self.ffn(self.norm2(h, ctx), ctx)
+
     def prefill(self, h, cache, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
         """Forward over the prompt, filling the cache when one is given."""
-        y, cache = self.mixer.prefill(self.norm1(h, ctx), cache, ctx,
-                                      q_chunk, kv_chunk)
-        h = h + y
-        return h + self.ffn(self.norm2(h, ctx), ctx), cache
+        x = self.norm1(h, ctx)
+        if isinstance(self.mixer, SSDBlock):
+            y, cache = self.mixer.prefill(x, cache, ctx)
+        else:
+            y, cache = self.mixer.prefill(x, cache, ctx, q_chunk, kv_chunk)
+        return self._ffn(h + y, ctx), cache
 
     def decode(self, h, cache, pos, ctx: ShardingCtx):
         y, cache = self.mixer.decode(self.norm1(h, ctx), cache, pos, ctx)
-        h = h + y
-        return h + self.ffn(self.norm2(h, ctx), ctx), cache
+        return self._ffn(h + y, ctx), cache
+
+    def cache_spec(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+        if isinstance(self.mixer, SSDBlock):     # fp32, as the reference's
+            return self.mixer.cache_spec(batch)
+        return self.mixer.cache_spec(batch, max_len, dtype)
 
 
 class TransformerLM(nn.Module):
@@ -85,20 +118,28 @@ class TransformerLM(nn.Module):
                  generator: torch.Generator | None):
         super().__init__()
         self.cfg = c = cfg
+        for kind in set(c.pattern):
+            if kind not in KINDS:
+                raise ValueError(f"unknown block kind {kind!r}")
+            if kind not in ("attn", "ssm"):
+                raise NotImplementedError(f"block kind {kind!r} is not "
+                                          f"ported yet")
         self.embed = Embedding(c.vocab, c.d_model, device=device,
                                generator=generator, dtype=c.dtype)
         self.final_norm = RMSNorm(c.d_model, device=device)
-        self.head = fan_in_normal((c.d_model, c.vocab), (0,), generator,
-                                  device, c.dtype)
+        if not c.tie_embeddings:
+            self.head = fan_in_normal((c.d_model, c.vocab), (0,), generator,
+                                      device, c.dtype)
         self.blocks = nn.ModuleList(
-            Block(c, device=device, generator=generator)
-            for _ in range(c.n_layers))
+            Block(c, kind, device=device, generator=generator)
+            for kind in c.block_kinds())
 
     def _embed(self, tokens, ctx: ShardingCtx):
         return self.embed(tokens, ctx).to(self.cfg.dtype)
 
     def _logits(self, h, ctx: ShardingCtx):
-        return _fp32_logits(self.final_norm(h, ctx), self.head)
+        w = self.embed.table.t() if self.cfg.tie_embeddings else self.head
+        return _fp32_logits(self.final_norm(h, ctx), w)
 
     def forward(self, tokens, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
@@ -110,7 +151,7 @@ class TransformerLM(nn.Module):
 
     def cache_spec(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
-        return {"blocks": [b.mixer.cache_spec(batch, max_len, dtype)
+        return {"blocks": [b.cache_spec(batch, max_len, dtype)
                            for b in self.blocks]}
 
     def prefill(self, tokens, cache, ctx: ShardingCtx, q_chunk: int = 1024,

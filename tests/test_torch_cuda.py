@@ -6,6 +6,7 @@ installed (``--noconftest``: ``tests/conftest.py`` imports jax):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 
 import pytest
@@ -17,8 +18,13 @@ from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm
-from repro_torch.kernels.util import same_pads
-from repro_torch.nn.module import resolve_device
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_combine
+from repro_torch.kernels.ssd_scan.ssd_scan import chunk_outputs, ssd_chunk
+from repro_torch.configs import get_config
+from repro_torch.kernels.util import largest_divisor, same_pads
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.nn.module import ShardingCtx, resolve_device, zeros_like_spec
+from repro_torch.training.steps import make_decode_step, make_prefill_step
 
 
 @pytest.fixture()
@@ -161,3 +167,103 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
         flash_attention(big, big, big)
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attention(q, q.cpu(), q)
+
+
+# ssd_chunk against its plain version, both fp32: max |kernel - plain| at
+# most 1e-4 of max |plain|, for y and for the states (sums over N and over
+# the chunk in another order; the in-block cumsum in another order than
+# torch.cumsum, whose last-bit differences at |cum| ~ 10^2 reach exp(cum_i -
+# cum_j) as ~1e-5 relative), the bar chip_smoke.py holds the kernel to and
+# shows to reject planted faults.
+def _ssd_inputs(B, S, H, P, N, groups, device):
+    """Mamba-2's distributions: dt = softplus(N(0, 0.5) + dt_bias) with
+    dt_bias from the init's range, A = -(1 .. H)."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((B, S, H, P), generator=gen)
+    dt_bias = torch.log(torch.expm1(torch.exp(
+        torch.rand(H, generator=gen) * math.log(100) + math.log(1e-3))))
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn((B, S, H), generator=gen) + dt_bias)
+    A = -torch.arange(1, H + 1, dtype=torch.float32)
+    Bm, Cm = (torch.randn((B, S, groups or H, N), generator=gen)
+              for _ in range(2))
+    out = [t.to(device) for t in (x, dt, A, Bm, Cm)]
+    if groups == 1:
+        out[3:] = [m.expand(B, S, H, N) for m in out[3:]]
+    return out
+
+
+def _within_ssd_bar(out, ref):
+    return float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk,groups", [
+    (2, 64, 4, 8, 16, 16, None),           # test_ssd_chunk_sweep's shape
+    (2, 48, 2, 64, 16, 16, 1),             # the smoke Mamba's SSD
+    (1, 1000, 4, 64, 128, 256, 1),         # Q = 250: a ragged last tile
+    (4, 2048, 48, 64, 128, 256, 1),        # a Mamba-2 780m prompt pass
+    (1, 512, 8, 64, 128, 256, None),       # per-head B and C
+])
+def test_ssd_chunk_kernel_matches_plain(cuda, B, S, H, P, N, chunk, groups):
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, groups, cuda)
+    Q = largest_divisor(S, chunk)
+    before = ssd_chunk.launches
+    got = chunk_outputs(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    ref = ssd_chunk_ref(x, dt, A, Bm, Cm, Q)
+    for name, g, r in zip(("y_intra", "states", "decays"), got, ref):
+        assert torch.isfinite(g).all(), name
+        assert _within_ssd_bar(g, r), name
+    init = 0.3 * torch.randn((B, H, P, N), device=cuda)
+    y, final = ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk, init_state=init)
+    y_p, final_p = ssd_combine(*ref, dt, A, Cm, init)
+    assert _within_ssd_bar(y, y_p) and _within_ssd_bar(final, final_p)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_rejects_what_the_kernel_cannot_take(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 2, 8, 16, None, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk(x.bfloat16(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="unit-stride"):
+        ssd_chunk(x.transpose(-1, -2).contiguous().transpose(-1, -2), dt, A,
+                  Bm, Cm)
+    with pytest.raises(ValueError, match="P ≤ 64"):
+        wide = torch.randn((1, 64, 2, 72), device=cuda)
+        ssd_chunk(wide, dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_chunk(x, dt.cpu(), A, Bm, Cm)
+
+
+@pytest.mark.cuda
+def test_mamba_smoke_kernel_path_matches_plain(cuda):
+    """The smoke Mamba-2 (4 layers, fp32 copy) on the card: a prompt pass
+    and two decode steps with use_pallas (9 rmsnorm and 4 ssd_chunk
+    launches in the prompt pass) against the plain path, at 1e-4 of the
+    logit scale."""
+    cfg = get_config("mamba2-780m").smoke_model
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, ssm=dataclasses.replace(
+        cfg.ssm, dtype=torch.float32))
+    model = TransformerLM(cfg, device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    outs = []
+    for use_pallas in (True, False):
+        ctx = ShardingCtx(cuda, use_pallas=use_pallas)
+        cache = zeros_like_spec(model.cache_spec(2, 66), cuda)
+        r0, s0 = rmsnorm.launches, ssd_chunk.launches
+        logits, cache = make_prefill_step(model, ctx)({"tokens": tokens},
+                                                      cache)
+        if use_pallas:
+            assert (rmsnorm.launches - r0, ssd_chunk.launches - s0) == (9, 4)
+        seq = [logits]
+        decode = make_decode_step(model, ctx)
+        for i in range(2):
+            logits, cache = decode(seq[0].argmax(-1), cache, 64 + i)
+            seq.append(logits)
+        outs.append(torch.cat(seq, 1))
+    scale = float(outs[1].abs().max())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * scale
