@@ -22,9 +22,11 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              (TF32 off), with the kernel's, the plain version's and, where
              one PyTorch call computes the same function, that call's time
              (F.conv2d, F.rms_norm, F.scaled_dot_product_attention:
-             yardsticks the port never calls). Three faults planted in the
-             plain attention must each fail the bf16 bar, three in the
-             plain SSD the ssd_chunk bar.
+             yardsticks the port never calls). Four faults planted in the
+             plain attention must each fail the bf16 bar (one of them P
+             rounded once to bf16 before P·V, as a tensor-core kernel
+             without the hi/lo split of P would), three in the plain SSD
+             the ssd_chunk bar.
   4. eval    the ResNet-50 eval forward at batch 32, 224², with use_pallas
              on and off, same weights: the kernel launches exactly 17 times
              and the logits agree to 1e-3.
@@ -138,15 +140,17 @@ FLASH_CASES = [("prompt_4x20x2048x128", 4, 20, 2048, 128, True,
 # Bars (rtol, atol) on |kernel - plain| <= atol + rtol·|plain|. fp32: 1e-4
 # (online softmax and sums in another order over up to 2048 keys). bf16:
 # the kernel and the plain version both work in fp32 from the same bf16
-# inputs and round only the output, so a last-bit fp32 difference flips
-# that rounding by one bf16 ulp (≤ 2^-7 relative); atol 1e-3 covers the
-# fp32 sums' error where o is near 0. An absolute bar alone would be blind
-# here: on N(0, 1) inputs the late causal rows' outputs are ~0.04 rms. So
-# the run plants three faults in the plain version (the scale 1 % off, the
-# KV tile [1024, 1088) dropped from the rows past it, 2e-3 added to o) and
-# fails unless the bar rejects each. On an H100 the kernel read 0.61 of
-# this bar at the prompt shape (max abs err 0.0020; 0.72-0.79 and 0.0039
-# at S = 1000), the faults 10.9, 138 and 2.0 times it.
+# inputs (the tensor-core kernel's P·V through P split into two bf16 parts,
+# 16 significant bits) and round only the output, so a last-bit fp32
+# difference flips that rounding by one bf16 ulp (≤ 2^-7 relative); atol
+# 1e-3 covers the fp32 sums' error where o is near 0. An absolute bar alone
+# would be blind here: on N(0, 1) inputs the late causal rows' outputs are
+# ~0.04 rms. So the run plants four faults in the plain version (the scale
+# 1 % off, the KV tile [1024, 1088) dropped from the rows past it, 2e-3
+# added to o, P rounded once to bf16 before P·V) and fails unless the bar
+# rejects each. On an H100 the tensor-core kernel read 0.79 of this bar at
+# the prompt shape (max abs err 0.0039; 0.76 and 0.0078 at S = 1000), the
+# faults 10.9, 138, 2.0 and 2.3 times it.
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 1e-3)}
 # (name, B, S, H, P, N, chunk, per-head B and C, initial state): the
 # Mamba-2 780m prompt pass's SSD (its one group of B and C passed as
@@ -414,25 +418,34 @@ def _bar_ratio(out: torch.Tensor, ref: torch.Tensor, rtol: float,
                   ).max())
 
 
-def _faulty_attention(q, k, v, mul: float = 1.0, drop=None):
-    """Causal attention in fp32 with the scores times ``mul`` and, with
-    ``drop = (lo, hi)``, keys lo..hi-1 hidden from the queries past them."""
+def _faulty_attention(q, k, v, mul: float = 1.0, drop=None,
+                      p_bf16: bool = False):
+    """Causal attention in fp32 with the scores times ``mul``; with ``drop =
+    (lo, hi)``, keys lo..hi-1 hidden from the queries past them; with
+    ``p_bf16``, the unnormalised weights exp(s - max) rounded once to bf16
+    before P·V (their sum taken in fp32), as a tensor-core kernel that does
+    not split P would."""
     S = q.shape[2]
     keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     if drop is not None:
         keep[drop[1]:, drop[0]:drop[1]] = False
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         * (mul / math.sqrt(q.shape[-1]))
-    p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
-    return (p @ v.float()).to(q.dtype)
+    s = s.masked_fill(~keep, float("-inf"))
+    if p_bf16:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = p.to(torch.bfloat16).float() @ v.float()
+        return (o / p.sum(-1, keepdim=True)).to(q.dtype)
+    return (torch.softmax(s, -1) @ v.float()).to(q.dtype)
 
 
 def _planted_faults(q, k, v, o_p, rtol, atol) -> dict:
-    """Bar ratios of three faulty versions against the plain output; a bar
+    """Bar ratios of four faulty versions against the plain output; a bar
     that lets one of them pass (ratio ≤ 1) fails the run."""
     faults = {"fault_scale_1pct": _faulty_attention(q, k, v, mul=1.01),
               "fault_drop_tile": _faulty_attention(q, k, v, drop=(1024, 1088)),
-              "fault_offset_2e-3": (o_p.float() + 2e-3).to(o_p.dtype)}
+              "fault_offset_2e-3": (o_p.float() + 2e-3).to(o_p.dtype),
+              "fault_p_bf16": _faulty_attention(q, k, v, p_bf16=True)}
     ratios = {n: _bar_ratio(o, o_p, rtol, atol) for n, o in faults.items()}
     missed = [n for n, r in ratios.items() if r <= 1.0]
     if missed:
@@ -483,6 +496,7 @@ def phase_flash(dev) -> dict:
                "max_abs_err": err, "rtol": rtol, "atol": atol,
                "bar_ratio": ratio, **faults}
         row["tflops"] = 4.0 * D * pairs / (row["ms"] * 1e-3) / 1e12
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
         _print_row("flash_attention", row)
         rows_out[name] = row
         del q, k, v, o_k

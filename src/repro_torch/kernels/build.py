@@ -45,7 +45,8 @@ def library_path(name: str) -> Path:
 
 def build_all(names: list[str] | None = None) -> dict[str, str]:
     """Compile every source not built yet, in parallel. Returns, per kernel
-    library, ``"cached"`` or ptxas's report of registers and shared memory.
+    library, ``"cached"`` or ptxas's report of spills, registers and shared
+    memory.
     Raises with nvcc's output when a compile fails."""
     names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -68,7 +69,8 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
             continue
         os.replace(tmp, out)       # atomic: a concurrent build sees all or none
         report[name] = " ".join(line.split(":", 1)[-1].strip()
-                                for line in log.splitlines() if "Used" in line)
+                                for line in log.splitlines()
+                                if "Used" in line or "spill" in line)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report

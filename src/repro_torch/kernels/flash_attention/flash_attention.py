@@ -1,14 +1,16 @@
-"""Wrapper of the FlashAttention-2 forward CUDA kernel
+"""Wrapper of the FlashAttention-2 forward CUDA kernels
 (``csrc/flash_attention.cu``).
 
 Same contract as the JAX package's ``flash_attention_fwd``: q, k, v of one
 shape (B, H, S, D) in float32 or bfloat16, causal or not, the result in q's
 dtype. The TPU tiles (``block_q``, ``block_k``, cut to divisors of S) are
-not carried over: the CUDA kernel uses fixed 64-row tiles and masks the
-ragged last one. It takes D ≤ 128, a multiple of 8, and any strides
-whose rows start on 16 bytes with the last dim unit-stride: the model
-passes (B, H, S, D) views of its (B, S, H, D) activations, and the result
-has q's layout.
+not carried over: the CUDA kernels use fixed tiles and mask the ragged last
+ones. bfloat16 runs on the tensor cores (``wgmma``, 128-row q tiles, P·V
+with P split into two bf16 parts so it keeps the reference's fp32
+accuracy); float32 on the FMA pipes (64-row q tiles). Both take D ≤ 128, a
+multiple of 8, and any strides whose rows start on 16 bytes with the last
+dim unit-stride: the model passes (B, H, S, D) views of its (B, S, H, D)
+activations, and the result has q's layout.
 
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches the kernel or raises. There is no backward kernel, so a call
@@ -31,6 +33,8 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
 MAX_HEAD_DIM = 128
+# q rows per block of each kernel; the grid holds at most 65535 q tiles
+_Q_TILE = {torch.float32: 64, torch.bfloat16: 128}
 
 
 @functools.cache
@@ -77,9 +81,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not all(_rows_aligned(t) for t in (q, k, v, o)):
         raise ValueError("flash_attention takes tensors whose last dim is "
                          "contiguous and whose rows start on 16 bytes")
-    if S > 65535 * 64 or B * H >= 2 ** 31:
-        raise ValueError("flash_attention: S at most 65535 tiles of 64, "
-                         "B·H below 2^31")
+    tile = _Q_TILE[q.dtype]
+    if S > 65535 * tile or B * H >= 2 ** 31:
+        raise ValueError(f"flash_attention: S at most 65535 tiles of {tile}, "
+                         f"B·H below 2^31")
     if o.numel() == 0:
         return o
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, o)
@@ -90,8 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  o.data_ptr(), B, H, S, D, strides,
                                  1.0 / math.sqrt(D), int(causal), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{rc}")
+        what = f"cuTensorMapEncodeTiled returned CUresult {rc - 10000}" \
+            if rc >= 10000 else f"CUDA error {rc}"
+        raise RuntimeError(f"flash_attention kernel launch failed: {what}")
     flash_attention.launches += 1
     return o
 

@@ -113,8 +113,9 @@ def test_rmsnorm_rejects_what_the_kernel_cannot_take(cuda):
 
 # flash_attention against the full-matrix plain version: fp32 1e-4 (online
 # softmax and sums in another order); bf16 one bf16 ulp (2^-7 relative: both
-# work in fp32 and round only the output, so a last-bit fp32 difference
-# flips that rounding by one ulp) plus 1e-3 for outputs near 0, the bar
+# work in fp32, the tensor-core kernel's P·V with P split into two bf16
+# parts, and round only the output, so a last-bit fp32 difference flips
+# that rounding by one ulp) plus 1e-3 for outputs near 0, the bar
 # chip_smoke.py holds the kernel to and shows to reject planted faults.
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
@@ -129,6 +130,16 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
     (1, 4, 257, 128, True, torch.float32, False),
     (2, 4, 64, 16, True, torch.float32, True),        # the smoke head dim
     (1, 3, 130, 72, False, torch.float32, False),
+    # the tensor-core kernel's branches: depth 64, a depth padded to 128
+    # that is not a multiple of 16, one row, a ragged tile past the first
+    # K tile, a non-causal ragged S, the smoke head dim (16 columns of a
+    # 64-column tile)
+    (2, 4, 256, 64, True, torch.bfloat16, True),
+    (1, 3, 200, 72, True, torch.bfloat16, False),
+    (2, 3, 1, 128, True, torch.bfloat16, False),
+    (1, 4, 65, 128, True, torch.bfloat16, True),
+    (1, 3, 130, 128, False, torch.bfloat16, False),
+    (2, 4, 64, 16, True, torch.bfloat16, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, S, D, causal,
                                               dtype, model_layout):
