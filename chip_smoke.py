@@ -6,11 +6,17 @@
 Phases, each printing lines of numbers; any failure exits non-zero:
   1. device  CUDA must be present; the card's name and power limit.
   2. build   nvcc builds every kernel from src/repro_torch/kernels/csrc,
-             one nvcc per source, all at once.
+             one nvcc per source, all at once; conv2d_gemm's GEMM kernels
+             must hold HGMMA (wgmma) instructions (cuobjdump -sass).
   3. kernels conv2d_gemm on ResNet-50's 8 distinct HaloConv shapes at
              batch 32, a pad_h=False (halo) case and an odd shape, in fp32
-             and bf16; rmsnorm on the Qwen1.5-4B prompt (8192 x 2560) and
-             decode (4 x 2560) shapes in bf16 and a prime row count in
+             and bf16, with its prep and split-K reduce passes timed apart;
+             on every fp32 case the plain conv run once more through cuDNN
+             with TF32 on (one TF32 pass, a planted fault the fp32 bar must
+             reject wherever K >= 576), and a stage-3 and a stage-4 case run
+             twice, bitwise equal; rmsnorm on the Qwen1.5-4B prompt
+             (8192 x 2560) and decode (4 x 2560) shapes in bf16 and a prime
+             row count in
              fp32, and on the Mamba-2 780m norm shapes (8192 and 4 rows of
              1536 and 3072) in bf16; flash_attention on the Qwen1.5-4B
              prompt shape (4, 20, 2048, 128) in bf16, causal, in the layout
@@ -67,7 +73,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import Loader  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.conv2d_gemm.conv2d_gemm import conv2d_gemm  # noqa: E402
+from repro_torch.kernels.conv2d_gemm.conv2d_gemm import (  # noqa: E402
+    BLOCK_M, conv2d_gemm, sm_count, split_plan, split_reduce, weight_prep)
 from repro_torch.kernels.conv2d_gemm.ref import conv2d_padded  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention  # noqa: E402
@@ -78,7 +85,8 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,  # noqa: E402
                                               ssd_combine)
 from repro_torch.kernels.ssd_scan.ssd_scan import (chunk_outputs,  # noqa: E402
                                                    ssd_chunk)
-from repro_torch.kernels.util import largest_divisor, same_pads  # noqa: E402
+from repro_torch.kernels.util import (cdiv, largest_divisor,  # noqa: E402
+                                      same_pads)
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.build import build_model  # noqa: E402
 from repro_torch.nn.module import ShardingCtx, zeros_like_spec  # noqa: E402
@@ -89,8 +97,22 @@ BATCH = 32
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32 outside the
 # tensor cores, bf16 on them, and HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12       # TF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# conv2d_gemm's route: fp32 as three TF32 products per multiply-add (3xTF32),
+# bf16 as one exact TF32 product. Its fp32 bound counts that tensor work, the
+# least time at the accuracy the fp32 bar demands; its bf16 bound is the
+# bf16 tensor cores'. The [kernel] lines print beside it the floor of the
+# useful work as one TF32 product, tf32_floor_ms (the convention of the
+# other kernels' bounds, which count useful FLOP only), and, for fp32, the
+# FMA pipes' bound, fma_bound_ms. The planted fault fault_tf32_once (cuDNN
+# with TF32 on) must fail the fp32 bar on every case with K = k·k·C of at
+# least FAULT_MIN_K.
+FP32_TF32_PRODUCTS = 3
+FAULT_MIN_K = 576
+# cases run twice, the two outputs bitwise equal (split K, reduced in order)
+DETERMINISM_CASES = ("s1_14_c256", "s1_7_c512")
 
 # (name, H, W, C, F, k, stride, pad_h, sites in the ResNet-50 forward)
 CONV_CASES = [
@@ -282,6 +304,34 @@ def phase_build():
     report = build.build_all()
     print(f"[build] {time.perf_counter() - t0:.2f} s "
           + " ".join(f"{k}: {v}" for k, v in report.items()), flush=True)
+    counts = conv_sass_counts()
+    print("[build] conv2d_gemm GEMM kernels' SASS (cuobjdump -sass): "
+          + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
+    if counts["HGMMA"] == 0:
+        fail("conv2d_gemm's GEMM kernels hold no HGMMA: not on the tensor "
+             "cores")
+
+
+def conv_sass_counts() -> dict:
+    """Instructions by opcode in the conv2d_gemm library's GEMM kernels:
+    HGMMA (wgmma on the tensor cores) against FFMA (fp32 FMA pipes)."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("conv2d_gemm"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, in_gemm = {"kernels": 0, "HGMMA": 0, "FFMA": 0}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            in_gemm = "conv_tc_kernel" in line
+            counts["kernels"] += in_gemm
+            continue
+        words = [w for w in line.split() if not w.startswith(("/*", "@"))]
+        if in_gemm and words:
+            op = words[0].split(".")[0]
+            if op in counts:
+                counts[op] += 1
+    return counts
 
 
 def conv_case(name, H, W, C, Fo, k, s, pad_h, dtype, gen, dev):
@@ -303,33 +353,67 @@ def conv_case(name, H, W, C, Fo, k, s, pad_h, dtype, gen, dev):
     y_p = plain()
     if y_k.shape != y_p.shape:
         fail(f"{name}: kernel shape {tuple(y_k.shape)} != {tuple(y_p.shape)}")
-    diff = (y_k.float() - y_p.float()).abs()
-    err = float(diff.max())
+    err = float((y_k.float() - y_p.float()).abs().max())
     tol = TOL[dtype]
-    if not bool(torch.isfinite(y_k).all()) or \
-            bool((diff > tol + tol * y_p.float().abs()).any()):
-        fail(f"conv2d_gemm {name} {dtype}: max abs err {err} over tolerance "
-             f"{tol}")
+    ratio = _bar_ratio(y_k, y_p, tol, tol)
+    if not bool(torch.isfinite(y_k).all()) or ratio > 1.0:
+        fail(f"conv2d_gemm {name} {dtype}: max abs err {err}, {ratio} times "
+             f"the bar {tol}")
+    det = {}
+    if name in DETERMINISM_CASES and dtype == torch.float32:
+        det["deterministic"] = all(torch.equal(kernel(), y_k)
+                                   for _ in range(2))
+        if not det["deterministic"]:
+            fail(f"conv2d_gemm {name}: two calls on the same inputs differ")
     # the library yardstick: one cuDNN call on an input padded beforehand
     xp = F.pad(x.permute(0, 3, 1, 2), (*pads_w, *pads_h)).contiguous(
         memory_format=torch.channels_last)
     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    ms = kernel_ms(kernel)
-    plain_ms = kernel_ms(plain)
-    library_ms = kernel_ms(lambda: F.conv2d(xp, w_oihw, stride=s))
     Ho, Wo = y_k.shape[1], y_k.shape[2]
-    flops = 2.0 * BATCH * Ho * Wo * Fo * k * k * C
-    nbytes = (x.numel() + w.numel() + y_k.numel()) * x.element_size()
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    M, K = BATCH * Ho * Wo, k * k * C
+    block_n, split = split_plan(M, Fo, K, sm_count(dev.index or 0))
     row = {"case": name, "dtype": str(dtype).removeprefix("torch."),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "gflop": flops / 1e9, "tflops": flops / (ms * 1e-3) / 1e12,
-           "max_abs_err": err, "tol": tol}
-    print("[kernel] conv2d_gemm " + " ".join(
-        f"{k_}={v:.6g}" if isinstance(v, float) else f"{k_}={v}"
-        for k_, v in row.items()), flush=True)
+           "ms": kernel_ms(kernel), "plain_ms": kernel_ms(plain),
+           "library_ms": kernel_ms(lambda: F.conv2d(xp, w_oihw, stride=s)),
+           "prep_ms": kernel_ms(lambda: weight_prep(w)), "reduce_ms": 0.0,
+           "block_n": block_n, "split": split,
+           "units": cdiv(M, BLOCK_M) * cdiv(Fo, block_n) * split}
+    if split > 1:    # the reduce alone, on a workspace of the kernel's shape
+        ws = torch.zeros((split, M, Fo), dtype=torch.float32, device=dev)
+        row["reduce_ms"] = kernel_ms(lambda: split_reduce(ws, y_k))
+        del ws
+    fault = {}
+    if dtype == torch.float32:
+        # planted fault: one TF32 pass (cuDNN with TF32 on), a less exact
+        # computation; its time is a yardstick of that, not of this function
+        allow = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            fault["fault_tf32_once"] = _bar_ratio(plain(), y_p, tol, tol)
+            fault["tf32_library_ms"] = kernel_ms(
+                lambda: F.conv2d(xp, w_oihw, stride=s))
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow
+        if K >= FAULT_MIN_K and fault["fault_tf32_once"] <= 1.0:
+            fail(f"conv2d_gemm {name}: the fp32 bar {tol} does not reject one "
+                 f"TF32 pass (cuDNN with TF32 on): {fault}")
+    flops = 2.0 * M * Fo * K
+    nbytes = (x.numel() + w.numel() + y_k.numel()) * x.element_size()
+    t_ops = FP32_TF32_PRODUCTS * flops / PEAK_TF32 \
+        if dtype == torch.float32 else flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    row.update({"bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "tf32_floor_ms": max(flops / PEAK_TF32, t_bytes) * 1e3})
+    if dtype == torch.float32:
+        row["fma_bound_ms"] = max(flops / PEAK_FLOPS[dtype], t_bytes) * 1e3
+    row.update({"gflop": flops / 1e9,
+                "tflops": flops / (row["ms"] * 1e-3) / 1e12,
+                "max_abs_err": err, "tol": tol, "bar_ratio": ratio, **fault,
+                **det})
+    row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+    row["ms_over_tf32_floor"] = row["ms"] / row["tf32_floor_ms"]
+    _print_row("conv2d_gemm", row)
     return row, t_ops * 1e3, t_bytes * 1e3
 
 
@@ -337,8 +421,9 @@ def phase_kernels(dev) -> dict:
     """Every case in fp32 and bf16; returns the kernels-line entry, summed
     over the 17 fp32 sites of one ResNet-50 forward."""
     gen = torch.Generator().manual_seed(0)
-    total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                           "ops_ms", "bytes_ms"), 0.0)
+    keys = ("ms", "plain_ms", "library_ms", "tf32_library_ms", "prep_ms",
+            "reduce_ms", "bound_ms", "tf32_floor_ms", "fma_bound_ms")
+    total = dict.fromkeys(keys + ("ops_ms", "bytes_ms"), 0.0)
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for (name, H, W, C, Fo, k, s, pad_h, sites) in CONV_CASES:
@@ -352,6 +437,11 @@ def phase_kernels(dev) -> dict:
                 total[key] += sites * row[key]
     bound_by = "operations" if total["ops_ms"] >= total["bytes_ms"] \
         else "bytes"
+    print("[kernel] conv2d_gemm 17 fp32 sites of a ResNet-50 forward: "
+          + " ".join(f"{k}={total[k]:.6g}" for k in keys)
+          + f" ms_over_bound={total['ms'] / total['bound_ms']:.6g}"
+          f" ms_over_tf32_floor={total['ms'] / total['tf32_floor_ms']:.6g}"
+          f" below_library={total['ms'] < total['library_ms']}", flush=True)
     return {"name": "conv2d_gemm", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": None, "max_abs_err": max_err,
             "ms": total["ms"], "plain_ms": total["plain_ms"],

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes). Libraries go into
-``kernels/_build/`` (git-ignored), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``kernels/_build/`` (git-ignored), named by a hash of the source, the
+``csrc/`` headers it includes (``#include "x.cuh"``, followed through
+headers) and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,9 +40,22 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and every file it includes with quotes, transitively."""
+    if path not in seen:
+        seen[path] = text = path.read_bytes()
+        for inc in _INCLUDE.findall(text):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, text in _sources(CSRC / f"{name}.cu", {}).items():
+        digest.update(path.name.encode() + b"\0" + text)
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,83 +1,269 @@
-// Implicit-GEMM 2-D convolution for Hopper (sm_90a), NHWC x HWIO -> NHWC.
+// Implicit-GEMM 2-D convolution for Hopper (sm_90a) on the tensor cores,
+// NHWC x HWIO -> NHWC, SAME padding at any stride, or the halo entry (VALID
+// over H, SAME over W).
 //
 // Replaces the Pallas kernel src/repro/kernels/conv2d_gemm/conv2d_gemm.py:
 // _conv_kernel (launched by conv2d_gemm at :83). That kernel pads the image
 // in its wrapper and runs kh*kw shifted (Ho*Wo, C) x (C, F) matmuls per
-// (image, filter block). Here the same sum is one GEMM with
+// (image, filter block), accumulating in fp32. Here the same sum is one GEMM
 //   M = B*Ho*Wo (output pixels), N = F (filters), K = kh*kw*C (taps x channels)
 // whose A operand (the im2col matrix) is never formed: each block gathers
 // its A tile straight from x, and padding is a bounds check, not a copy.
 //
-// What bounds it on the H100: the convs of ResNet-50 do 60-500 FLOP per byte
-// they must move, far above the card's 20 FLOP/byte fp32 balance point
-// (67 TFLOP/s over 3.35 TB/s), so the bound is operations. In fp32 the
-// kernel does plain FMAs (no TF32, so it meets the reference's 1e-4 bar),
-// whose peak is 67 TFLOP/s; bf16 inputs are widened to fp32 on load and also
-// run on the FMA pipes, which caps bf16 at the fp32 rate, far below the
-// tensor-core bound. The design spends its effort on operand reuse: a
-// 128x64 output tile per block, staged through shared memory in K-slices of
-// 16, and an 8x4 register tile per thread (32 accumulators, 3 vector shared
-// loads per 32 FMAs). wgmma, TMA and a multi-stage pipeline are later work.
+// What bounds it on the H100: operations. ResNet-50's convs do 60-500 FLOP
+// per byte they must move. The reference's numerics are fp32 products summed
+// in fp32 (|kernel - plain| <= 1e-4 + 1e-4|plain| is the port's bar), which
+// one TF32 pass misses by 10x or more at K >= 576. So:
+//   * fp32 runs as 3xTF32 on wgmma: each operand x is split into
+//     hi = cvt.rna.tf32(x) and lo = x - hi (exact in fp32; the tensor core
+//     reads lo as TF32 by dropping its low 13 bits), and every k-step of 8
+//     accumulates lo_a*hi_b, hi_a*lo_b, then hi_a*hi_b into fp32 registers
+//     (m64nNk8 .tf32). lo*lo (2^-22 relative) is dropped. The bound is the
+//     TF32 peak over the three products: 495/3 = 165 TFLOP/s of useful work.
+//   * bf16 takes the same mainloop with one product: a bf16 value is exact
+//     in TF32 (8 significant bits), so hi = x, lo = 0, and the products are
+//     exact and summed in fp32. That caps bf16 at the TF32 rate, half the
+//     bf16 tensor-core peak; native bf16 wgmma is later work.
+//   * Operand layouts: wgmma takes TF32 operands K-major only. A (im2col of
+//     NHWC x) is K-major already: a tap's channels are contiguous. B (HWIO
+//     w, K x F with F contiguous) is not, so a prep kernel writes it
+//     transposed, (F, Kp) with Kp = K rounded up to 32 and zero padded, as
+//     w_hi and w_lo (fp32) into scratch the wrapper allocates.
+//   * Loads: a ring of STAGES k-tiles of 32 in shared memory. B comes by
+//     TMA (one thread, a 3-D tensor map over the prepped (part, F, Kp)
+//     matrix, 128-byte swizzled as the wgmma descriptor reads it, rows past
+//     F zero-filled), completing on an mbarrier per stage. A comes by
+//     cp.async gathers from all 256 threads, waited on with
+//     cp.async.wait_group: 16-byte (pixel, 4 fp32 or 8 bf16 channels) when
+//     C allows, zero-filled through src-size 0 for padding pixels, rows past
+//     M and columns past K; otherwise element by element (4-byte cp.async
+//     for fp32, plain loads for bf16: the stem's C = 3). Each warpgroup
+//     reads its A fragments from shared memory, splits them in registers
+//     and feeds them as wgmma's register A.
+//   * Overlap: while one k-tile's wgmmas run, the threads start the copies
+//     of the k-tile STAGES - 1 ahead and read and split the next k-tile's
+//     A fragments into a second register set; then they wait. A wgmma with
+//     its A in registers holds its warp until the tensor core takes it, so
+//     the twelve wgmmas of an fp32 k-tile hold the warps for most of their
+//     run, and the copies and fragment loads after them overlap only the
+//     tail: the tensor cores idle for part of every k-tile.
+//   * Tiles: 128 output pixels (two warpgroups of 64) x BN filters, BN = 128,
+//     or 64 where F <= 64 (the stem, stage 1). Stages 3-4 of ResNet-50 have
+//     52-98 such tiles for 132 SMs, so the wrapper splits K into `split`
+//     ranges of k-tiles (grid z), chosen from (M, N, K); each range writes
+//     its partial sums to an fp32 workspace and a reduce kernel adds them in
+//     range order and casts. No atomics: the same inputs give bitwise the
+//     same output in every call.
 //
 // Plain C interface, loaded with ctypes; each entry returns the CUDA error
-// code of its launch (0 on success). The caller allocates y and guarantees
-// contiguous tensors on the current device and numel < 2^31.
+// code of its last launch (0 on success), or 10000 + the CUresult of
+// cuTensorMapEncodeTiled when B's tensor map cannot be made (the encoder
+// comes through the runtime, so no -lcuda). The caller allocates y and the
+// scratch (wt: 2 x F x Kp fp32 for fp32 inputs, F x Kp for bf16, Kp = K
+// rounded up to whole k-tiles of BK, passed in and checked against K; ws:
+// split x M x F fp32 when split > 1) and guarantees contiguous tensors on
+// the current device and fewer than 2^31 elements in each. The wrapper's launch
+// counter counts its calls, one per conv, though a call launches the prep,
+// the GEMM and, where split > 1, the reduce.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // output pixels per block
-constexpr int BN = 64;   // filters per block
-constexpr int BK = 16;   // K-slice staged in shared memory
-constexpr int TM = 8;    // rows per thread
-constexpr int TN = 4;    // columns per thread
-constexpr int NT = (BM / TM) * (BN / TN);  // 256 threads
-constexpr int A_PER_THREAD = BM * BK / NT;  // 8 A elements loaded per slice
-constexpr int B_PER_THREAD = BK * BN / NT;  // 4 B elements loaded per slice
-constexpr int A_ROW_STEP = NT / BK;         // 16
-constexpr int B_ROW_STEP = NT / BN;         // 4
-constexpr int A_PAD = 4;  // keeps rows 16-byte aligned, spreads banks
+constexpr int BM = 128;      // output pixels per block: two warpgroups of 64
+constexpr int BK = 32;       // K per k-tile: one 128-byte row of fp32
+constexpr int NT = 256;      // threads
+constexpr int STAGES = 4;    // k-tiles in the ring
+constexpr int B_ROW = BK * 4;  // bytes of a B row (fp32, 128B-swizzled)
 
 struct ConvShape {
   int B, H, W, C, F, kh, kw, sh, sw, Ho, Wo, pad_top, pad_left;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+// Shared memory of one stage: the B parts (hi, and lo for fp32), each
+// BN rows of 128 bytes, then the A tile, BM rows of BK elements of T; every
+// part 1024-byte aligned.
+template <typename T, int BN>
+struct Tile {
+  static constexpr bool SPLIT = sizeof(T) == 4;   // fp32: 3xTF32
+  static constexpr int NB = SPLIT ? 2 : 1;        // B parts
+  static constexpr int B_BYTES = BN * B_ROW;
+  static constexpr int A_BYTES = BM * BK * static_cast<int>(sizeof(T));
+  static constexpr int STAGE = NB * B_BYTES + A_BYTES;
+  static constexpr int BARS = STAGES * STAGE;      // an mbarrier per stage
+  static constexpr int SMEM = BARS + 8 * STAGES + 1024;  // + alignment
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // per chunk
+  static constexpr int CPR = BK / EPC;            // 16-byte chunks of a row
+};
+
+// byte offset of 16-byte chunk c of A row r: fp32 rows are 128 bytes, chunk
+// c stored at c ^ (r % 8); bf16 rows are 64 bytes, two to a 128-byte line,
+// chunk c at c ^ (r / 2 % 4). Either way the fragment loads of a warp (8
+// rows, 4 columns) hit 32 distinct banks.
+template <typename T>
+__device__ __forceinline__ uint32_t a_off(int r, int c);
+template <>
+__device__ __forceinline__ uint32_t a_off<float>(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+template <>
+__device__ __forceinline__ uint32_t a_off<__nv_bfloat16>(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-conv2d_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   T* __restrict__ y, ConvShape s) {
-  __shared__ __align__(16) float As[BK][BM + A_PAD];  // A^T slice: [k][m]
-  __shared__ __align__(16) float Bs[BK][BN];          // B slice:   [k][n]
+// 16 bytes from global src to shared dst, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// one box of the 3-D tensor map over the prepped B at (k, n, part) into
+// shared memory at dst, completing on the barrier
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int k, int n,
+                                            int part) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(n), "r"(part),
+      "r"(bar)
+      : "memory");
+}
+
+// d += A·B, m64n64k8 tf32: A (64 x 8) in registers, 4 tf32 per thread;
+// B (64 x 8) K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A·B, m64n128k8 tf32: A (64 x 8) in registers, 4 tf32 per thread;
+// B (128 x 8) K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  if constexpr (BN == 64)
+    wgmma_tf32_n64(d, a, desc_b);
+  else
+    wgmma_tf32_n128(d, a, desc_b);
+}
+
+// y (or, with a split K, this range's slice of the workspace) for one
+// block: BM output pixels x BN filters over the k-tiles
+// [z * kt_per_split, (z + 1) * kt_per_split) of K. VEC: A gathered in
+// 16-byte chunks (C a multiple of 16 / sizeof(T)), else element by element.
+//
+// Fragments (PTX ISA, wgmma .tf32): warp w of a warpgroup holds rows
+// 16w .. 16w+15 of its 64; lane t holds A elements (row, k) = (t/4, t%4),
+// (t/4 + 8, t%4), (t/4, t%4 + 4), (t/4 + 8, t%4 + 4) of each k-step of 8,
+// and accumulator d[4i + 2h + e] = (row t/4 + 8h, column 8i + 2(t%4) + e).
+template <typename T, int BN, bool VEC>
+__global__ void __launch_bounds__(NT, 1)
+conv_tc_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap tb,
+               T* __restrict__ y, float* __restrict__ ws, ConvShape s, int Kp,
+               int kt_per_split) {
+  using TL = Tile<T, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle's period
+  uint8_t* const base_ptr = smem_raw + (base - raw);
 
   const int tid = threadIdx.x;
-  const int M = s.B * s.Ho * s.Wo;
-  const int K = s.kh * s.kw * s.C;
-  const int N = s.F;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+  const int M = s.B * s.Ho * s.Wo, N = s.F, K = s.kh * s.kw * s.C;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int nk = min(kt_per_split, Kp / BK - kt0);
+  const uint32_t bars = base + TL::BARS;  // stage s's barrier at bars + 8 s
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // A loader: this thread always fills column a_kk of the slice, rows
-  // a_r0 + i*A_ROW_STEP. Neighbouring threads read neighbouring channels.
-  const int a_kk = tid % BK;
-  const int a_r0 = tid / BK;
-  int a_img[A_PER_THREAD], a_h[A_PER_THREAD], a_w[A_PER_THREAD];
+  // A loader: this thread fills column a_col (a 16-byte chunk, or one
+  // element) of rows a_row0 + i * A_STEP of every A tile
+  constexpr int A_ROWS = VEC ? BM * TL::CPR / NT : BM * BK / NT;
+  constexpr int A_STEP = VEC ? NT / TL::CPR : NT / BK;
+  const int a_col = VEC ? tid % TL::CPR : tid % BK;
+  const int a_row0 = VEC ? tid / TL::CPR : tid / BK;
+  int a_img[A_ROWS], a_h[A_ROWS], a_w[A_ROWS];
 #pragma unroll
-  for (int i = 0; i < A_PER_THREAD; ++i) {
-    const int m = m0 + a_r0 + i * A_ROW_STEP;
+  for (int i = 0; i < A_ROWS; ++i) {
+    const int m = m0 + a_row0 + i * A_STEP;
     if (m < M) {
       const int b = m / (s.Ho * s.Wo);
       const int r = m - b * s.Ho * s.Wo;
@@ -92,107 +278,372 @@ conv2d_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       a_w[i] = 0;
     }
   }
-  // (di, dj, c) of this thread's column k = k0 + a_kk, advanced by BK per
-  // slice without divisions (K is ordered di, dj, c as in HWIO)
-  int kc = a_kk % s.C;
-  int kdj = (a_kk / s.C) % s.kw;
-  int kdi = a_kk / (s.C * s.kw);
+  // k, and its (di, dj, c), of this thread's A column in the next k-tile to
+  // load; k-tiles are loaded in order, so it advances by BK without
+  // divisions (K is ordered (di, dj, c) as HWIO)
+  int ld_k = kt0 * BK + (VEC ? a_col * TL::EPC : a_col);
+  int ld_di = ld_k / s.C, ld_dj, ld_c = ld_k - ld_di * s.C;
+  ld_dj = ld_di % s.kw;
+  ld_di /= s.kw;
 
-  const int b_n = tid % BN;
-  const int b_k = tid / BN;
-
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-  float acc[TM][TN];
+  // k-tile kt into a slot: B by TMA (one thread; rows past F read as
+  // zeros), A by every thread's cp.async gathers
+  auto load_stage = [&](int kt, int slot) {
+    const uint32_t sb = base + slot * TL::STAGE;
+    if (tid == 0) {
+      mbar_expect_tx(bars + 8 * slot, TL::NB * TL::B_BYTES);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool k_ok = k0 + a_kk < K;
-#pragma unroll
-    for (int i = 0; i < A_PER_THREAD; ++i) {
-      const int h = a_h[i] + kdi;
-      const int ww = a_w[i] + kdj;
-      float v = 0.f;
-      if (k_ok && (unsigned)h < (unsigned)s.H && (unsigned)ww < (unsigned)s.W)
-        v = to_float(x[a_img[i] + (h * s.W + ww) * s.C + kc]);
-      As[a_kk][a_r0 + i * A_ROW_STEP] = v;
+      for (int p = 0; p < TL::NB; ++p)
+        tma_load_3d(sb + p * TL::B_BYTES, &tb, bars + 8 * slot, kt * BK, n0,
+                    p);
     }
+    const uint32_t sa = sb + TL::NB * TL::B_BYTES;
+    const bool k_ok = ld_k < K;
 #pragma unroll
-    for (int j = 0; j < B_PER_THREAD; ++j) {
-      const int kk = b_k + j * B_ROW_STEP;
-      const int k = k0 + kk;
-      const int n = n0 + b_n;
-      Bs[kk][b_n] = (k < K && n < N) ? to_float(w[k * N + n]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                           a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float b[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-
-    kc += BK;
-    while (kc >= s.C) {
-      kc -= s.C;
-      if (++kdj == s.kw) {
-        kdj = 0;
-        ++kdi;
+    for (int i = 0; i < A_ROWS; ++i) {
+      const int r = a_row0 + i * A_STEP;
+      const int h = a_h[i] + ld_di, w = a_w[i] + ld_dj;
+      const bool ok =
+          k_ok && (unsigned)h < (unsigned)s.H && (unsigned)w < (unsigned)s.W;
+      const T* src = ok ? x + a_img[i] + (h * s.W + w) * s.C + ld_c : x;
+      if constexpr (VEC) {
+        cp16(sa + a_off<T>(r, a_col), src, ok);
+      } else {
+        const uint32_t off = a_off<T>(r, a_col / TL::EPC) +
+                             (a_col % TL::EPC) * static_cast<int>(sizeof(T));
+        if constexpr (sizeof(T) == 4) {
+          cp4(sa + off, src, ok);
+        } else {  // 2-byte elements: no cp.async that small
+          const unsigned short v =
+              ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
+          *reinterpret_cast<unsigned short*>(base_ptr + (sa - base) + off) =
+              v;
+        }
       }
     }
-  }
+    ld_k += BK;
+    for (ld_c += BK; ld_c >= s.C; ld_c -= s.C)
+      if (++ld_dj == s.kw) {
+        ld_dj = 0;
+        ++ld_di;
+      }
+  };
+
+  // A fragments of one k-tile, split: the TF32 high parts and (fp32) the
+  // remainders, per k-step of 8
+  using Frag = uint32_t[BK / 8][4];
+  const int fr = wg * 64 + warp * 16 + lane / 4;  // fragment rows fr, fr + 8
+  const int fc = lane % 4;                        // columns fc, fc + 4
+  auto load_frag = [&](int slot, Frag& hi, Frag& lo) {
+    const uint8_t* const ap =
+        base_ptr + slot * TL::STAGE + TL::NB * TL::B_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = fr + 8 * (q & 1), kk = ks * 8 + fc + 4 * (q >> 1);
+        const float v = widen(*reinterpret_cast<const T*>(
+            ap + a_off<T>(r, kk / TL::EPC) +
+            (kk % TL::EPC) * static_cast<int>(sizeof(T))));
+        if constexpr (TL::SPLIT) {
+          hi[ks][q] = tf32_rna(v);
+          lo[ks][q] = __float_as_uint(v - __uint_as_float(hi[ks][q]));
+        } else {
+          hi[ks][q] = __float_as_uint(v);  // bf16: exact in TF32
+          lo[ks][q] = 0;
+        }
+      }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  // One k-tile: its wgmmas are issued, and while they run the copies of
+  // k-tile j + STAGES - 1 are started and k-tile j + 1's fragments are read
+  // into the other register set; then the wgmmas are waited for.
+  auto step = [&](int j, const Frag& hi, const Frag& lo, Frag& next_hi,
+                  Frag& next_lo) {
+    const uint32_t sb = base + (j % STAGES) * TL::STAGE;
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      const uint64_t d_hi = sw128_desc(sb + ks * 32, 16, 8 * B_ROW);
+      if constexpr (TL::SPLIT) {
+        const uint64_t d_lo =
+            sw128_desc(sb + TL::B_BYTES + ks * 32, 16, 8 * B_ROW);
+        wgmma_tf32<BN>(acc, lo[ks], d_hi);
+        wgmma_tf32<BN>(acc, hi[ks], d_lo);
+      }
+      wgmma_tf32<BN>(acc, hi[ks], d_hi);
+    }
+    wgmma_commit();
+    if (j + 1 < nk) {
+      cp_wait<STAGES - 3>();  // this thread's copies of k-tile j + 1 landed
+      mbar_wait(bars + 8 * ((j + 1) % STAGES), (j + 1) / STAGES & 1);  // B
+      // everyone's have; every wgmma on k-tile j - 1 is done
+      __syncthreads();
+      const int jn = j + STAGES - 1;  // refills the slot of k-tile j - 1
+      if (jn < nk) load_stage(kt0 + jn, jn % STAGES);
+      cp_commit();
+      load_frag((j + 1) % STAGES, next_hi, next_lo);
+    }
+    wgmma_wait_all();
+    pin(acc);
+  };
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < nk) load_stage(kt0 + i, i);
+    cp_commit();
+  }
+  Frag hi0, lo0, hi1, lo1;
+  cp_wait<STAGES - 2>();  // k-tile 0
+  mbar_wait(bars, 0);
+  __syncthreads();
+  load_frag(0, hi0, lo0);
+  for (int j = 0; j < nk; j += 2) {
+    step(j, hi0, lo0, hi1, lo1);
+    if (j + 1 < nk) step(j + 1, hi1, lo1, hi0, lo0);
+  }
+
+  // epilogue: y in T, or this K range's fp32 partial sums
+  const int z = blockIdx.z;
+  const bool pair = N % 2 == 0;  // 2 columns per store stay aligned
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + fr + 8 * h;
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n < N) y[m * N + n] = from_float<T>(acc[i][j]);
+    for (int i = 0; i < BN / 8; ++i) {
+      const int n = n0 + 8 * i + 2 * fc;
+      if (n >= N) continue;
+      const float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];
+      const int idx = m * N + n;
+      if (gridDim.z > 1) {
+        float* const out = ws + z * M * N + idx;
+        if (pair)
+          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+        else {
+          out[0] = v0;
+          if (n + 1 < N) out[1] = v1;
+        }
+      } else if constexpr (sizeof(T) == 4) {
+        float* const out = reinterpret_cast<float*>(y) + idx;
+        if (pair)
+          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+        else {
+          out[0] = v0;
+          if (n + 1 < N) out[1] = v1;
+        }
+      } else {
+        __nv_bfloat16* const out = reinterpret_cast<__nv_bfloat16*>(y) + idx;
+        if (pair)
+          *reinterpret_cast<__nv_bfloat162*>(out) =
+              __floats2bfloat162_rn(v0, v1);
+        else {
+          out[0] = __float2bfloat16(v0);
+          if (n + 1 < N) out[1] = __float2bfloat16(v1);
+        }
+      }
     }
   }
 }
 
+// w (K x F, F contiguous) -> wt (F x Kp, K contiguous, zero past K) as hi =
+// tf32(w) and, for fp32, lo = w - hi at wt + F * Kp; 32 x 32 tiles
+// transposed through shared memory
 template <typename T>
-int launch(const void* x, const void* w, void* y, int B, int H, int W, int C,
-           int F, int kh, int kw, int sh, int sw, int Ho, int Wo, int pad_top,
-           int pad_left, void* stream) {
-  const ConvShape s{B, H, W, C, F, kh, kw, sh, sw, Ho, Wo, pad_top, pad_left};
-  const int M = B * Ho * Wo;
-  const dim3 grid((M + BM - 1) / BM, (F + BN - 1) / BN);
-  conv2d_gemm_kernel<T><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      s);
+__global__ void __launch_bounds__(256)
+prep_kernel(const T* __restrict__ w, float* __restrict__ wt, int K, int F,
+            int Kp) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, f0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int k = k0 + r, f = f0 + tx;
+    tile[r][tx] = k < K && f < F ? widen(w[k * F + f]) : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int f = f0 + r, k = k0 + tx;
+    if (f >= F) continue;
+    const float v = tile[tx][r];
+    const float hi = __uint_as_float(tf32_rna(v));
+    wt[f * Kp + k] = hi;
+    if constexpr (sizeof(T) == 4) wt[(F + f) * Kp + k] = v - hi;
+  }
+}
+
+// y = sum over the split ranges of the workspace, in range order, cast to T
+template <typename T>
+__global__ void __launch_bounds__(256)
+reduce_kernel(const float* __restrict__ ws, T* __restrict__ y, int split,
+              int MN) {
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  if (MN % 4 == 0) {
+    for (int i = first; i < MN / 4; i += stride) {
+      float4 a = reinterpret_cast<const float4*>(ws)[i];
+      for (int z = 1; z < split; ++z) {
+        const float4 b = reinterpret_cast<const float4*>(ws + z * MN)[i];
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
+      }
+      if constexpr (sizeof(T) == 4) {
+        reinterpret_cast<float4*>(y)[i] = a;
+      } else {
+        __nv_bfloat162* const out =
+            reinterpret_cast<__nv_bfloat162*>(y) + 2 * i;
+        out[0] = __floats2bfloat162_rn(a.x, a.y);
+        out[1] = __floats2bfloat162_rn(a.z, a.w);
+      }
+    }
+  } else {
+    for (int i = first; i < MN; i += stride) {
+      float a = ws[i];
+      for (int z = 1; z < split; ++z) a += ws[z * MN + i];
+      if constexpr (sizeof(T) == 4)
+        reinterpret_cast<float*>(y)[i] = a;
+      else
+        reinterpret_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16(a);
+    }
+  }
+}
+
+int round_up_k(int K) { return (K + BK - 1) / BK * BK; }
+
+// the wrapper allocates wt with rows of Kp; a Kp that is not K rounded up
+// to whole k-tiles means the two sides disagree on the layout
+template <typename T>
+int prep(const void* w, void* wt, int K, int F, int Kp, cudaStream_t stream) {
+  if (Kp != round_up_k(K)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(Kp / 32, (F + 31) / 32);
+  prep_kernel<T><<<grid, 256, 0, stream>>>(static_cast<const T*>(w),
+                                          static_cast<float*>(wt), K, F, Kp);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int reduce(const void* ws, void* y, int split, int MN, cudaStream_t stream) {
+  const int vec = MN % 4 == 0 ? MN / 4 : MN;
+  const int blocks = min((vec + 255) / 256, 132 * 8);
+  reduce_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(ws),
+                                              static_cast<T*>(y), split, MN);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the prepped B, (parts, F, Kp) fp32, as a 3-D tensor map read in boxes of
+// 32 k x block_n rows, 128-byte swizzled as the wgmma descriptors read them
+int make_b_map(CUtensorMap* map, const void* wt, int parts, int F, int Kp,
+               int block_n) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return MAP_ERROR + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kp),
+                              static_cast<cuuint64_t>(F),
+                              static_cast<cuuint64_t>(parts)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Kp) * 4,
+                                 static_cast<cuuint64_t>(F) * Kp * 4};
+  const cuuint32_t box[3] = {BK, static_cast<cuuint32_t>(block_n), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(wt), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_ERROR + static_cast<int>(r);
+}
+
+template <typename T, int BN, bool VEC>
+int launch_main(const void* x, const void* wt, void* y, void* ws,
+                const ConvShape& s, int Kp, int split, cudaStream_t stream) {
+  using TL = Tile<T, BN>;
+  CUtensorMap tb;
+  const int rc = make_b_map(&tb, wt, TL::NB, s.F, Kp, BN);
+  if (rc != 0) return rc;
+  auto* kern = conv_tc_kernel<T, BN, VEC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int M = s.B * s.Ho * s.Wo;
+  const int kt_per_split = (Kp / BK + split - 1) / split;
+  const dim3 grid((M + BM - 1) / BM, (s.F + BN - 1) / BN, split);
+  kern<<<grid, NT, TL::SMEM, stream>>>(static_cast<const T*>(x), tb,
+                                       static_cast<T*>(y),
+                                       static_cast<float*>(ws), s, Kp,
+                                       kt_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// prep, the main kernel over `split` K ranges, then (split > 1) the reduce
+template <typename T>
+int run(const void* x, const void* w, void* y, void* wt, void* ws, int B,
+        int H, int W, int C, int F, int kh, int kw, int sh, int sw, int Ho,
+        int Wo, int pad_top, int pad_left, int Kp, int block_n, int split,
+        void* stream) {
+  const ConvShape s{B, H, W, C, F, kh, kw, sh, sw, Ho, Wo, pad_top, pad_left};
+  const int K = kh * kw * C, k_tiles = round_up_k(K) / BK;
+  // every one of the split ranges must hold at least one k-tile
+  if (Kp != round_up_k(K) || split < 1 ||
+      (split - 1) * ((k_tiles + split - 1) / split) >= k_tiles ||
+      (block_n != 64 && block_n != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  int rc = prep<T>(w, wt, K, F, Kp, st);
+  if (rc != 0) return rc;
+  const bool vec = C % Tile<T, 64>::EPC == 0;
+  if (block_n == 64)
+    rc = vec ? launch_main<T, 64, true>(x, wt, y, ws, s, Kp, split, st)
+             : launch_main<T, 64, false>(x, wt, y, ws, s, Kp, split, st);
+  else
+    rc = vec ? launch_main<T, 128, true>(x, wt, y, ws, s, Kp, split, st)
+             : launch_main<T, 128, false>(x, wt, y, ws, s, Kp, split, st);
+  if (rc != 0 || split == 1) return rc;
+  return reduce<T>(ws, y, split, B * Ho * Wo * F, st);
 }
 
 }  // namespace
 
-extern "C" int conv2d_gemm_f32(const void* x, const void* w, void* y, int B,
-                               int H, int W, int C, int F, int kh, int kw,
-                               int sh, int sw, int Ho, int Wo, int pad_top,
-                               int pad_left, void* stream) {
-  return launch<float>(x, w, y, B, H, W, C, F, kh, kw, sh, sw, Ho, Wo,
-                       pad_top, pad_left, stream);
+extern "C" int conv2d_gemm_f32(const void* x, const void* w, void* y,
+                               void* wt, void* ws, int B, int H, int W, int C,
+                               int F, int kh, int kw, int sh, int sw, int Ho,
+                               int Wo, int pad_top, int pad_left, int Kp,
+                               int block_n, int split, void* stream) {
+  return run<float>(x, w, y, wt, ws, B, H, W, C, F, kh, kw, sh, sw, Ho, Wo,
+                    pad_top, pad_left, Kp, block_n, split, stream);
 }
 
-extern "C" int conv2d_gemm_bf16(const void* x, const void* w, void* y, int B,
-                                int H, int W, int C, int F, int kh, int kw,
-                                int sh, int sw, int Ho, int Wo, int pad_top,
-                                int pad_left, void* stream) {
-  return launch<__nv_bfloat16>(x, w, y, B, H, W, C, F, kh, kw, sh, sw, Ho, Wo,
-                               pad_top, pad_left, stream);
+extern "C" int conv2d_gemm_bf16(const void* x, const void* w, void* y,
+                                void* wt, void* ws, int B, int H, int W,
+                                int C, int F, int kh, int kw, int sh, int sw,
+                                int Ho, int Wo, int pad_top, int pad_left,
+                                int Kp, int block_n, int split, void* stream) {
+  return run<__nv_bfloat16>(x, w, y, wt, ws, B, H, W, C, F, kh, kw, sh, sw,
+                            Ho, Wo, pad_top, pad_left, Kp, block_n, split,
+                            stream);
+}
+
+// the prep and reduce passes alone, for timing them apart
+extern "C" int conv2d_gemm_prep_f32(const void* w, void* wt, int K, int F,
+                                    int Kp, void* stream) {
+  return prep<float>(w, wt, K, F, Kp, static_cast<cudaStream_t>(stream));
+}
+extern "C" int conv2d_gemm_prep_bf16(const void* w, void* wt, int K, int F,
+                                     int Kp, void* stream) {
+  return prep<__nv_bfloat16>(w, wt, K, F, Kp,
+                             static_cast<cudaStream_t>(stream));
+}
+extern "C" int conv2d_gemm_reduce_f32(const void* ws, void* y, int split,
+                                      int MN, void* stream) {
+  return reduce<float>(ws, y, split, MN, static_cast<cudaStream_t>(stream));
+}
+extern "C" int conv2d_gemm_reduce_bf16(const void* ws, void* y, int split,
+                                       int MN, void* stream) {
+  return reduce<__nv_bfloat16>(ws, y, split, MN,
+                               static_cast<cudaStream_t>(stream));
 }

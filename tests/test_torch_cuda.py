@@ -60,6 +60,50 @@ def test_conv2d_gemm_kernel_matches_plain(cuda, H, W, C, F, k, s, pad_h,
     torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def _conv_inputs(B, H, C, F, k, dtype, device):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((B, H, H, C), generator=gen).to(device, dtype)
+    w = (torch.randn((k, k, C, F), generator=gen) / math.sqrt(k * k * C)
+         ).to(device, dtype)
+    return x, w
+
+
+# ResNet-50's stage-3 (K = 2304) and stage-4 (K = 4608) convs at batch 8,
+# where the wrapper splits K into ranges reduced by a second kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C,F,dtype", [
+    (14, 256, 256, torch.float32), (7, 512, 512, torch.float32),
+    (14, 256, 256, torch.bfloat16), (7, 512, 512, torch.bfloat16)])
+def test_conv2d_gemm_split_k_matches_plain(cuda, H, C, F, dtype):
+    """fp32: 1e-4; bf16: 3e-2, as above."""
+    x, w = _conv_inputs(8, H, C, F, 3, dtype, cuda)
+    before = conv2d_gemm.launches
+    y = conv2d_gemm(x, w)
+    torch.cuda.synchronize()
+    assert conv2d_gemm.launches == before + 1     # one per conv
+    ref = conv2d_padded(x, w, (1, 1), (1, 1), (1, 1))
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C,F", [(14, 256, 256), (7, 512, 512)])
+def test_conv2d_gemm_is_deterministic(cuda, H, C, F):
+    """Split-K partial sums are reduced in a fixed order, never by atomics:
+    two calls on the same inputs agree bit for bit."""
+    x, w = _conv_inputs(8, H, C, F, 3, torch.float32, cuda)
+    assert torch.equal(conv2d_gemm(x, w), conv2d_gemm(x, w))
+
+
+@pytest.mark.cuda
+def test_conv2d_gemm_refuses_autograd_on_the_card(cuda):
+    x, w = _conv_inputs(1, 8, 4, 8, 3, torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        conv2d_gemm(x, w.requires_grad_())
+    with torch.no_grad():
+        assert conv2d_gemm(x, w).shape == (1, 8, 8, 8)
+
+
 @pytest.mark.cuda
 def test_conv2d_gemm_rejects_what_the_kernel_cannot_take(cuda):
     x = torch.randn((1, 8, 8, 4), device=cuda)
