@@ -7,7 +7,8 @@ Phases, each printing lines of numbers; any failure exits non-zero:
   1. device  CUDA must be present; the card's name and power limit.
   2. build   nvcc builds every kernel from src/repro_torch/kernels/csrc,
              one nvcc per source, all at once; conv2d_gemm's GEMM kernels
-             must hold HGMMA (wgmma) instructions (cuobjdump -sass).
+             and the ssd_chunk kernel must hold HGMMA (wgmma) instructions
+             (cuobjdump -sass).
   3. kernels conv2d_gemm on ResNet-50's 8 distinct HaloConv shapes at
              batch 32, a pad_h=False (halo) case and an odd shape, in fp32
              and bf16, with its prep and split-K reduce passes timed apart;
@@ -24,15 +25,19 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              case; ssd_chunk on the Mamba-2 780m prompt pass's SSD
              (4, 2048, 48, 64), N 128, Q 256, fp32, with B and C as stride-0
              views over the heads and per head, a ragged S = 1000 and a
-             nonzero initial state. Each held against its plain version
+             nonzero initial state, the first two run twice, bitwise
+             equal, its prep pass timed apart. Each held against its plain
+             version
              (TF32 off), with the kernel's, the plain version's and, where
              one PyTorch call computes the same function, that call's time
              (F.conv2d, F.rms_norm, F.scaled_dot_product_attention:
              yardsticks the port never calls). Four faults planted in the
              plain attention must each fail the bf16 bar (one of them P
              rounded once to bf16 before P·V, as a tensor-core kernel
-             without the hi/lo split of P would), three in the plain SSD
-             the ssd_chunk bar.
+             without the hi/lo split of P would), four in the plain SSD
+             the ssd_chunk bar (one of them the SSD with one TF32 pass in
+             each contraction, emulated on the card, as a tensor-core kernel
+             without the hi/lo split of its operands would).
   4. eval    the ResNet-50 eval forward at batch 32, 224², with use_pallas
              on and off, same weights: the kernel launches exactly 17 times
              and the logits agree to 1e-3.
@@ -81,10 +86,11 @@ from repro_torch.kernels.flash_attention.flash_attention import \
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.kernels.ssd_scan.emulate import emulate  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,  # noqa: E402
                                               ssd_combine)
-from repro_torch.kernels.ssd_scan.ssd_scan import (chunk_outputs,  # noqa: E402
-                                                   ssd_chunk)
+from repro_torch.kernels.ssd_scan.ssd_scan import (  # noqa: E402
+    chunk_outputs, operand_prep, ssd_chunk)
 from repro_torch.kernels.util import (cdiv, largest_divisor,  # noqa: E402
                                       same_pads)
 from repro_torch.launch import train  # noqa: E402
@@ -113,6 +119,10 @@ FP32_TF32_PRODUCTS = 3
 FAULT_MIN_K = 576
 # cases run twice, the two outputs bitwise equal (split K, reduced in order)
 DETERMINISM_CASES = ("s1_14_c256", "s1_7_c512")
+# the kernels whose SASS must hold HGMMA: library -> a word of the kernels'
+# names (conv2d_gemm's prep and reduce kernels have none)
+TENSOR_CORE_KERNELS = {"conv2d_gemm": "conv_tc_kernel",
+                       "ssd_chunk": "ssd_chunk_kernel"}
 
 # (name, H, W, C, F, k, stride, pad_h, sites in the ResNet-50 forward)
 CONV_CASES = [
@@ -198,8 +208,18 @@ SSD_CASES = [("prompt_4x2048x48x64_N128", 4, 2048, 48, 64, 128, 256, False,
 # small share of its max. 1e-4 as the fp32 flash bar. The run plants three
 # faults in the plain version (the causal mask admitting j = i + 1, every
 # decay taken from position j - 1, chunk 3's state dropped from the
-# inter-chunk recurrence) and fails unless the bar rejects each.
+# inter-chunk recurrence) and fails unless the bar rejects each. Since the
+# kernel moved onto the tensor cores (3×TF32 in each of its three
+# contractions), a fourth: the SSD with one TF32 pass (hi·hi alone) in each
+# contraction, the arithmetic of a tensor-core kernel that does not split its
+# operands, emulated on the card (kernels/ssd_scan/emulate.py; 2–6× the bar
+# on the CPU at the Mamba-2 780m chunk). Its bound counts the work of that
+# route, 3 TF32 products per useful multiply-add at 495 TFLOP/s, as the fp32
+# conv's does; the row prints beside it the useful work as one TF32 product
+# (tf32_floor_ms) and on the FMA pipes (fma_bound_ms). The prompt and
+# per-head cases run twice, bitwise equal (no atomics).
 SSD_TOL = 1e-4
+SSD_DETERMINISM_CASES = ("prompt_4x2048x48x64_N128", "per_head_BC")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 KERNEL_REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:43",
@@ -304,30 +324,30 @@ def phase_build():
     report = build.build_all()
     print(f"[build] {time.perf_counter() - t0:.2f} s "
           + " ".join(f"{k}: {v}" for k, v in report.items()), flush=True)
-    counts = conv_sass_counts()
-    print("[build] conv2d_gemm GEMM kernels' SASS (cuobjdump -sass): "
-          + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
-    if counts["HGMMA"] == 0:
-        fail("conv2d_gemm's GEMM kernels hold no HGMMA: not on the tensor "
-             "cores")
+    for lib, marker in TENSOR_CORE_KERNELS.items():
+        counts = sass_counts(lib, marker)
+        print(f"[build] {lib} {marker} SASS (cuobjdump -sass): "
+              + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
+        if counts["kernels"] == 0 or counts["HGMMA"] == 0:
+            fail(f"{lib}'s {marker} holds no HGMMA: not on the tensor cores")
 
 
-def conv_sass_counts() -> dict:
-    """Instructions by opcode in the conv2d_gemm library's GEMM kernels:
-    HGMMA (wgmma on the tensor cores) against FFMA (fp32 FMA pipes)."""
+def sass_counts(lib: str, marker: str) -> dict:
+    """Instructions by opcode in the kernels of library ``lib`` whose names
+    hold ``marker``: HGMMA (wgmma on the tensor cores) against FFMA (fp32
+    FMA pipes)."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(build.library_path("conv2d_gemm"))],
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(lib))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts, in_gemm = {"kernels": 0, "HGMMA": 0, "FFMA": 0}, False
+    counts, inside = {"kernels": 0, "HGMMA": 0, "FFMA": 0}, False
     for line in sass.splitlines():
         if "Function :" in line:
-            in_gemm = "conv_tc_kernel" in line
-            counts["kernels"] += in_gemm
+            inside = marker in line
+            counts["kernels"] += inside
             continue
         words = [w for w in line.split() if not w.startswith(("/*", "@"))]
-        if in_gemm and words:
+        if inside and words:
             op = words[0].split(".")[0]
             if op in counts:
                 counts[op] += 1
@@ -668,8 +688,8 @@ def phase_ssd(dev) -> dict:
             if with_init else None
         plain = _ssd_outputs(ssd_chunk_ref(x, dt, A, Bm, Cm, Q), dt, A, Cm,
                              init)
-        got = _ssd_outputs(chunk_outputs(x, dt, A, Bm, Cm, Q), dt, A, Cm,
-                           init)
+        chunks = chunk_outputs(x, dt, A, Bm, Cm, Q)
+        got = _ssd_outputs(chunks, dt, A, Cm, init)
         torch.cuda.synchronize()
         y, final = ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk, init_state=init)
         if not (torch.equal(y, got["y"])
@@ -682,6 +702,14 @@ def phase_ssd(dev) -> dict:
                 or ratio > 1.0:
             fail(f"ssd_chunk {name}: max abs err {err}, {ratio} times the "
                  f"bar ({SSD_TOL} of max |plain|)")
+        det = {}
+        if name in SSD_DETERMINISM_CASES:
+            det["deterministic"] = all(
+                all(torch.equal(a, b) for a, b in
+                    zip(chunk_outputs(x, dt, A, Bm, Cm, Q), chunks))
+                for _ in range(2))
+            if not det["deterministic"]:
+                fail(f"ssd_chunk {name}: two calls on the same inputs differ")
         faults = {}
         if name == SSD_CASES[0][0]:
             faults = {
@@ -693,22 +721,33 @@ def phase_ssd(dev) -> dict:
                     A, Cm, init), plain),
                 "fault_drop_chunk3_state": _ssd_ratio(_ssd_outputs(
                     ssd_chunk_ref(x, dt, A, Bm, Cm, Q), dt, A, Cm, init,
-                    drop=3), plain)}
+                    drop=3), plain),
+                "fault_tf32_once": _ssd_ratio(_ssd_outputs(
+                    emulate(x, dt, A, Bm, Cm, Q, products=(1, 1, 1)), dt, A,
+                    Cm, init), plain)}
             missed = [n for n, r in faults.items() if r <= 1.0]
             if missed:
                 fail(f"ssd_chunk bar ({SSD_TOL} of max |plain|) does not "
                      f"reject the planted faults {missed}: {faults}")
+            # the same arithmetic with the split, for the kernel's own share
+            faults["emulated_3xtf32"] = _ssd_ratio(_ssd_outputs(
+                emulate(x, dt, A, Bm, Cm, Q), dt, A, Cm, init), plain)
         max_err = max(max_err, err)
-        del plain, got
+        del plain, got, chunks
         nC = S // Q
         pairs = Q * (Q + 1) // 2
         flops = B * nC * H * (pairs * 2 * N + pairs * 2 * P + 2 * Q * P * N)
         bc_bytes = 2 * B * S * (H if per_head else 1) * N * 4
         nbytes = 4 * (2 * B * S * H * P + B * S * H + H + B * nC * H * P * N
                       + B * nC * H) + bc_bytes
+        t_ops = FP32_TF32_PRODUCTS * flops / PEAK_TF32
+        t_bytes = nbytes / PEAK_BYTES
         row = {"case": name, "Q": Q,
                "ms": kernel_ms(lambda: chunk_outputs(x, dt, A, Bm, Cm, Q),
                                reps=10, warmup=2),
+               "prep_ms": kernel_ms(lambda: operand_prep(x, dt, A, Bm, Cm,
+                                                         Q),
+                                    reps=10, warmup=2),
                "wrapper_ms": kernel_ms(lambda: ssd_chunk(
                    x, dt, A, Bm, Cm, chunk=chunk, init_state=init),
                    reps=10, warmup=2),
@@ -716,10 +755,15 @@ def phase_ssd(dev) -> dict:
                                                            Q),
                                      reps=3, warmup=1),
                "library_ms": None,
-               **_bound(flops, nbytes, torch.float32),
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "tf32_floor_ms": max(flops / PEAK_TF32, t_bytes) * 1e3,
+               "fma_bound_ms": max(flops / PEAK_FLOPS[torch.float32],
+                                   t_bytes) * 1e3,
                "gflop": flops / 1e9, "max_abs_err": err, "bar_ratio": ratio,
-               **faults}
+               **faults, **det}
         row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
         _print_row("ssd_chunk", row)
         rows_out[name] = row
         del x, dt, A, Bm, Cm, init

@@ -62,7 +62,7 @@ def library_path(name: str) -> Path:
 def build_all(names: list[str] | None = None) -> dict[str, str]:
     """Compile every source not built yet, in parallel. Returns, per kernel
     library, ``"cached"`` or ptxas's report of spills, registers and shared
-    memory.
+    memory, and its warnings that it serialized wgmma instructions.
     Raises with nvcc's output when a compile fails."""
     names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,7 +86,8 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
         os.replace(tmp, out)       # atomic: a concurrent build sees all or none
         report[name] = " ".join(line.split(":", 1)[-1].strip()
                                 for line in log.splitlines()
-                                if "Used" in line or "spill" in line)
+                                if "Used" in line or "spill" in line
+                                or "wgmma" in line)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report

@@ -10,9 +10,13 @@ before the first position, is folded into the inter-chunk recurrence as
 ``SSDBlock._ssd`` folds it.
 
 The kernel computes what the Pallas kernel computes for every (batch,
-chunk): the intra-chunk output, the chunk state and the chunk decay. The
-inter-chunk recurrence over the S/Q chunks and the ``y_inter`` term stay in
-torch (``ref.ssd_combine``), as the reference keeps them in host code.
+chunk): the intra-chunk output, the chunk state and the chunk decay, on the
+tensor cores as 3×TF32 (``emulate.py`` is its arithmetic in plain torch). A
+call launches a prep kernel (B's tile images as hi and lo parts, and cum, dt
+and the state weights, into scratch the wrapper allocates) and the main
+kernel; it counts as one launch. The inter-chunk recurrence over the S/Q
+chunks and the ``y_inter`` term stay in torch (``ref.ssd_combine``), as the
+reference keeps them in host code.
 
 Each tensor is read through its own (b, s, h) element strides, with its
 last dim unit-stride: ``SSDBlock`` passes the one group of Mamba-2's B and
@@ -34,18 +38,25 @@ from ..build import load
 from ..util import largest_divisor
 from .ref import ssd_chunk_ref, ssd_combine
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+_PREP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-MAX_HEAD_DIM = 64      # P: one 4-column slice of the output per thread
+MAX_HEAD_DIM = 64      # P: one 64-wide wgmma tile of the output
 MAX_STATE = 128        # N: the C and B tiles are staged whole
-MAX_CHUNK = 8192       # Q: cumsum and dt of a chunk in shared memory
+MAX_CHUNK = 8192       # Q: the contract since the first kernel
+TILE = 64              # positions per tile of the kernel
+# fp32 of one tile's images, B's and B^T's, each hi then lo
+TILE_IMAGES = 4 * TILE * MAX_STATE
 
 
 @functools.cache
-def _kernel_fn():
-    fn = load("ssd_chunk").ssd_chunk_f32
+def _kernel_fns():
+    lib = load("ssd_chunk")
+    fn, prep = lib.ssd_chunk_f32, lib.ssd_chunk_prep_f32
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    return fn
+    prep.argtypes, prep.restype = _PREP_ARGTYPES, ctypes.c_int
+    return fn, prep
 
 
 def _check(x, dt, A, Bm, Cm, init_state):
@@ -112,18 +123,57 @@ def chunk_outputs(x, dt, A, Bm, Cm, Q: int):
     decays = torch.empty((B_, nC, H), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y, states, decays
-    strides = (ctypes.c_longlong * 12)(*(st for t in (x, dt, Bm, Cm)
-                                         for st in t.stride()[:3]))
+    bimg, aux = _scratch(x, Bm, Q)
+    # x rows copied in 16-byte pieces where every row start is aligned
+    vec = P % 4 == 0 and x.data_ptr() % 16 == 0 and all(
+        st % 4 == 0 for st in x.stride()[:3])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel_fn()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                          Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                          states.data_ptr(), decays.data_ptr(), B_, nC, Q, H,
-                          P, N, strides, stream)
+        rc = _kernel_fns()[0](x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                              Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+                              states.data_ptr(), decays.data_ptr(),
+                              bimg.data_ptr(), aux.data_ptr(), B_, nC, Q, H,
+                              P, N, _strides(x, dt, Bm, Cm), int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {rc}")
     ssd_chunk.launches += 1
     return y, states, decays
+
+
+def _strides(x, dt, Bm, Cm):
+    return (ctypes.c_longlong * 12)(*(st for t in (x, dt, Bm, Cm)
+                                      for st in t.stride()[:3]))
+
+
+def _scratch(x, Bm, Q: int):
+    """The kernel's scratch: B's and Bᵀ's tile images (hi and lo, per (b,
+    chunk, group, tile); one group where B's head stride is 0, else one per
+    head)
+    and per (b, chunk, head) cum, dt and the state weights, padded to whole
+    tiles."""
+    B_, S, H, _ = x.shape
+    nC, nJ = S // Q, -(-Q // TILE)
+    groups = 1 if Bm.stride(2) == 0 else H
+    bimg = torch.empty((B_ * nC * groups * nJ, TILE_IMAGES),
+                       dtype=torch.float32, device=x.device)
+    aux = torch.empty((B_ * nC * H, 3, nJ * TILE), dtype=torch.float32,
+                      device=x.device)
+    return bimg, aux
+
+
+def operand_prep(x, dt, A, Bm, Cm, Q: int):
+    """The kernel's prep pass alone (B's tile images, cum, dt and weights)
+    into fresh scratch, on a CUDA tensor: for timing it apart."""
+    B_, S, H, _ = x.shape
+    bimg, aux = _scratch(x, Bm, Q)
+    with torch.cuda.device(x.device):
+        rc = _kernel_fns()[1](dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                              bimg.data_ptr(), aux.data_ptr(), B_, S // Q, Q,
+                              H, Bm.shape[-1], _strides(x, dt, Bm, Cm),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk prep launch failed: CUDA error {rc}")
+    return bimg, aux
 
 
 ssd_chunk.launches = 0   # kernel launches since the caller last reset it
