@@ -11,7 +11,9 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              (cuobjdump -sass).
   3. kernels conv2d_gemm on ResNet-50's 8 distinct HaloConv shapes at
              batch 32, a pad_h=False (halo) case and an odd shape, in fp32
-             and bf16, with its prep and split-K reduce passes timed apart;
+             and bf16, and on VGG16's 9 distinct shapes (its 13 sites) at
+             batch 32, 224², in fp32, with its prep and split-K reduce
+             passes timed apart;
              on every fp32 case the plain conv run once more through cuDNN
              with TF32 on (one TF32 pass, a planted fault the fp32 bar must
              reject wherever K >= 576), and a stage-3 and a stage-4 case run
@@ -38,10 +40,18 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              the ssd_chunk bar (one of them the SSD with one TF32 pass in
              each contraction, emulated on the card, as a tensor-core kernel
              without the hi/lo split of its operands would).
-  4. eval    the ResNet-50 eval forward at batch 32, 224², with use_pallas
-             on and off, same weights: the kernel launches exactly 17 times
-             and the logits agree to 1e-3.
-  5. train   repro_torch.launch.train.main: ResNet-50, batch 32, 3 steps.
+  4. eval    the ResNet-50 and the VGG16 eval forward at batch 32, 224²,
+             with use_pallas on and off, same weights: the kernel launches
+             exactly 17 and 13 times and the logits agree within EVAL_TOL of
+             their scale.
+  5. train   repro_torch.launch.train.main, 3 steps each: ResNet-50 and
+             VGG16 at batch 32, CosmoFlow (128³, 4 channels) at batch 8.
+  5b. oracle the paper's Fig. 3 at p = 1: ResNet-50, ResNet-152, VGG16
+             (batch 32) and CosmoFlow (batch 8), fp32, one after another;
+             each measured train step against the oracle's projection,
+             self-calibrated and calibrated on ResNet-50 (two accuracy
+             tables and their means), and the projected memory beside the
+             step's peak.
   6. serve   Qwen1.5-4B at full width in bf16, random weights from seed 0:
              a prompt pass over 4 prompts of 2048 tokens, then 32 greedy
              decode steps into a cache of 2080 positions, with use_pallas:
@@ -76,6 +86,14 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.cnn_archs import ORACLE_BATCH  # noqa: E402
+from repro_torch.core.calibration import calibrate_host_system  # noqa: E402
+from repro_torch.core.cluster import ClusterSpec  # noqa: E402
+from repro_torch.core.layer_stats import stats_for  # noqa: E402
+from repro_torch.core.oracle import (OracleConfig, TimeModel,  # noqa: E402
+                                     project)
+from repro_torch.core.validation import (accuracy_report,  # noqa: E402
+                                         validate)
 from repro_torch.data.pipeline import Loader  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.conv2d_gemm.conv2d_gemm import (  # noqa: E402
@@ -137,6 +155,34 @@ CONV_CASES = [
     ("halo_30x28_c128", 30, 28, 128, 128, 3, 1, False, 0),
     ("odd_17_c5_f12_s3", 17, 17, 5, 12, 3, 3, True, 0),
 ]
+# VGG16's 13 HaloConv sites at 224², the same fields; fp32 only (the model's
+# dtype). conv0 gathers 3 channels, K = 27, less than one k-tile; the 224²
+# sites are the largest M (1.6 M rows) the kernel is given.
+VGG_CONV_CASES = [
+    ("vgg_224_c3_f64", 224, 224, 3, 64, 3, 1, True, 1),
+    ("vgg_224_c64", 224, 224, 64, 64, 3, 1, True, 1),
+    ("vgg_112_c64_f128", 112, 112, 64, 128, 3, 1, True, 1),
+    ("vgg_112_c128", 112, 112, 128, 128, 3, 1, True, 1),
+    ("vgg_56_c128_f256", 56, 56, 128, 256, 3, 1, True, 1),
+    ("vgg_56_c256", 56, 56, 256, 256, 3, 1, True, 2),
+    ("vgg_28_c256_f512", 28, 28, 256, 512, 3, 1, True, 1),
+    ("vgg_28_c512", 28, 28, 512, 512, 3, 1, True, 2),
+    ("vgg_14_c512", 14, 14, 512, 512, 3, 1, True, 3),
+]
+# the eval phases: (arch, conv2d_gemm launches in one use_pallas forward)
+EVAL_SITES = {"resnet50": 17, "vgg16": 13}
+# eval logits, kernel path vs plain path: |Δ| ≤ EVAL_TOL·(|plain| +
+# min(max|plain|, 1)). ResNet's BatchNorm keeps its logits at unit scale or
+# above, where this is the absolute 1e-3 + 1e-3·|plain|; VGG16's shrink
+# through 16 layers without it (LeCun-normal weights, ReLU), to where an
+# absolute 1e-3 would pass almost anything, so there the bar scales with
+# the logits.
+EVAL_TOL = 1e-3
+# the training phases: (arch, batch)
+TRAIN_RUNS = (("resnet50", 32), ("vgg16", 32), ("cosmoflow", 8))
+# the oracle phase (paper Fig. 3 at p = 1): (arch, batch), one after another;
+# the first is also the model the oracle is calibrated on for the others
+ORACLE_RUNS = tuple(ORACLE_BATCH.items())
 SOURCE = "src/repro_torch/kernels/csrc/conv2d_gemm.cu"
 REPLACES = "src/repro/kernels/conv2d_gemm/conv2d_gemm.py:83"
 
@@ -437,33 +483,50 @@ def conv_case(name, H, W, C, Fo, k, s, pad_h, dtype, gen, dev):
     return row, t_ops * 1e3, t_bytes * 1e3
 
 
-def phase_kernels(dev) -> dict:
-    """Every case in fp32 and bf16; returns the kernels-line entry, summed
-    over the 17 fp32 sites of one ResNet-50 forward."""
-    gen = torch.Generator().manual_seed(0)
-    keys = ("ms", "plain_ms", "library_ms", "tf32_library_ms", "prep_ms",
-            "reduce_ms", "bound_ms", "tf32_floor_ms", "fma_bound_ms")
-    total = dict.fromkeys(keys + ("ops_ms", "bytes_ms"), 0.0)
-    max_err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for (name, H, W, C, Fo, k, s, pad_h, sites) in CONV_CASES:
+CONV_SUM_KEYS = ("ms", "plain_ms", "library_ms", "tf32_library_ms",
+                 "prep_ms", "reduce_ms", "bound_ms", "tf32_floor_ms",
+                 "fma_bound_ms", "ops_ms", "bytes_ms")
+
+
+def _conv_sites(model: str, cases, dtypes, gen, dev) -> dict:
+    """Every case in each of ``dtypes``; returns the fp32 rows summed over
+    the sites of one ``model`` forward, with the largest fp32 error."""
+    total = dict.fromkeys(CONV_SUM_KEYS, 0.0)
+    total["max_abs_err"], n_sites = 0.0, 0
+    for dtype in dtypes:
+        for (name, H, W, C, Fo, k, s, pad_h, sites) in cases:
             row, ops_ms, bytes_ms = conv_case(name, H, W, C, Fo, k, s, pad_h,
                                               dtype, gen, dev)
             if dtype != torch.float32:
                 continue
-            max_err = max(max_err, row["max_abs_err"])
+            total["max_abs_err"] = max(total["max_abs_err"],
+                                       row["max_abs_err"])
             row.update(ops_ms=ops_ms, bytes_ms=bytes_ms)
-            for key in total:
+            for key in CONV_SUM_KEYS:
                 total[key] += sites * row[key]
-    bound_by = "operations" if total["ops_ms"] >= total["bytes_ms"] \
-        else "bytes"
-    print("[kernel] conv2d_gemm 17 fp32 sites of a ResNet-50 forward: "
-          + " ".join(f"{k}={total[k]:.6g}" for k in keys)
+            n_sites += sites
+    print(f"[kernel] conv2d_gemm {n_sites} fp32 sites of a {model} forward: "
+          + " ".join(f"{k}={total[k]:.6g}" for k in CONV_SUM_KEYS[:-2])
           + f" ms_over_bound={total['ms'] / total['bound_ms']:.6g}"
           f" ms_over_tf32_floor={total['ms'] / total['tf32_floor_ms']:.6g}"
           f" below_library={total['ms'] < total['library_ms']}", flush=True)
+    return total
+
+
+def phase_kernels(dev) -> dict:
+    """ResNet-50's cases in fp32 and bf16, VGG16's in fp32; returns the
+    kernels-line entry, summed over the fp32 sites of one ResNet-50 and one
+    VGG16 forward (17 + 13), the sites the eval phases launch."""
+    gen = torch.Generator().manual_seed(0)
+    sums = [_conv_sites("ResNet-50", CONV_CASES,
+                        (torch.float32, torch.bfloat16), gen, dev),
+            _conv_sites("VGG16", VGG_CONV_CASES, (torch.float32,), gen, dev)]
+    total = {k: sum(t[k] for t in sums) for k in CONV_SUM_KEYS}
+    bound_by = "operations" if total["ops_ms"] >= total["bytes_ms"] \
+        else "bytes"
     return {"name": "conv2d_gemm", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": None, "max_abs_err": max_err,
+            "replaces": REPLACES, "launches": None,
+            "max_abs_err": max(t["max_abs_err"] for t in sums),
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": bound_by,
             "library_ms": total["library_ms"]}
@@ -777,10 +840,13 @@ def phase_ssd(dev) -> dict:
                                     "library_ms")}}
 
 
-def phase_eval() -> int:
+def phase_eval(arch: str) -> int:
+    """``arch``'s eval forward at batch 32, 224², with use_pallas on and off,
+    same weights: the kernel launches EVAL_SITES[arch] times and the logits
+    agree within EVAL_TOL of their scale. Returns the launches."""
     ctx_k = ShardingCtx("cuda", use_pallas=True)
     ctx_p = ShardingCtx("cuda")
-    cfg = get_config("resnet50")
+    cfg = get_config(arch)
     model = build_model(cfg, ctx_k, seed=0)
     batch = Loader(train.data_config_for(cfg.model, BATCH, seed=0),
                    ctx_k.device).batch_at(0)
@@ -790,40 +856,50 @@ def phase_eval() -> int:
     out_k = eval_k(batch)
     torch.cuda.synchronize()
     launches = conv2d_gemm.launches
-    if launches != 17:
-        fail(f"the use_pallas forward launched conv2d_gemm {launches} times, "
-             f"not 17")
+    if launches != EVAL_SITES[arch]:
+        fail(f"the {arch} use_pallas forward launched conv2d_gemm {launches} "
+             f"times, not {EVAL_SITES[arch]}")
     out_p = eval_p(batch)
     logits_k, logits_p = out_k["outputs"], out_p["outputs"]
     if tuple(logits_k.shape) != (BATCH, 1000) or \
             not bool(torch.isfinite(logits_k).all()):
-        fail(f"eval logits: shape {tuple(logits_k.shape)} or not finite")
-    diff = (logits_k - logits_p).abs()
-    if bool((diff > 1e-3 + 1e-3 * logits_p.abs()).any()):
-        fail(f"eval logits kernel vs plain: max abs diff {float(diff.max())}")
+        fail(f"{arch} eval logits: shape {tuple(logits_k.shape)} or not "
+             f"finite")
+    scale = float(logits_p.abs().max())
+    ratio = _bar_ratio(logits_k, logits_p, EVAL_TOL,
+                       EVAL_TOL * min(scale, 1.0))
+    if ratio > 1.0:
+        fail(f"{arch} eval logits kernel vs plain: {ratio} times the bar "
+             f"{EVAL_TOL}·(|plain| + {min(scale, 1.0)})")
     ms_k = time_ms(lambda: eval_k(batch), reps=10, warmup=2)
     ms_p = time_ms(lambda: eval_p(batch), reps=10, warmup=2)
-    print(f"[eval] resnet50 batch={BATCH} launches={launches} "
-          f"max_abs_diff={float(diff.max()):.3g} loss_kernel="
-          f"{float(out_k['loss']):.7g} loss_plain={float(out_p['loss']):.7g} "
+    diff = float((logits_k - logits_p).abs().max())
+    print(f"[eval] {arch} batch={BATCH} launches={launches} "
+          f"max_abs_diff={diff:.3g} logit_scale={scale:.4g} "
+          f"bar_ratio={ratio:.3g} loss_kernel={float(out_k['loss']):.7g} "
+          f"loss_plain={float(out_p['loss']):.7g} "
           f"ms_kernel={ms_k:.4g} ms_plain={ms_p:.4g}", flush=True)
+    del model, eval_k, eval_p, out_k, out_p, batch
+    torch.cuda.empty_cache()
     return launches
 
 
-def phase_train():
+def phase_train(arch: str, batch: int):
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    out = train.main(["--arch", "resnet50", "--batch", str(BATCH),
+    out = train.main(["--arch", arch, "--batch", str(batch),
                       "--steps", "3", "--log-every", "1", "--device", "cuda"])
     losses = out["losses"]
     if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
-        fail(f"training losses {losses}")
+        fail(f"{arch} training losses {losses}")
     step_ms = statistics.mean(out["step_s"][1:]) * 1e3   # after the first
-    print(f"[train] resnet50 batch={BATCH} steps=3 losses="
+    print(f"[train] {arch} batch={batch} steps=3 losses="
           f"{','.join(f'{v:.5g}' for v in losses)} ms_per_step={step_ms:.4g} "
           f"first_step_ms={out['step_s'][0] * 1e3:.4g} "
-          f"images_per_s={BATCH / step_ms * 1e3:.4g} "
+          f"samples_per_s={batch / step_ms * 1e3:.4g} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()}",
           flush=True)
+    torch.cuda.empty_cache()
 
 
 def _logit_diff(kernel: torch.Tensor, plain: torch.Tensor) -> dict:
@@ -1001,6 +1077,84 @@ def phase_fp32_serve(dev, arch: str) -> float:
     return worst
 
 
+def _oracle_rows(block: str, rows: list) -> float:
+    """Prints ``accuracy_report`` of (arch, point) rows, one [oracle] line
+    each, the model's name before the row; returns the mean accuracy."""
+    lines = accuracy_report([pt for _, pt in rows]).splitlines()
+    print(f"[oracle] {block} {'model':10s} {lines[0]}", flush=True)
+    for (arch, _), line in zip(rows, lines[1:-1]):
+        print(f"[oracle] {block} {arch:10s} {line}", flush=True)
+    print(f"[oracle] {block} {'':10s} {lines[-1]}", flush=True)
+    return statistics.mean(pt.accuracy for _, pt in rows)
+
+
+def phase_oracle(dev):
+    """The paper's Fig. 3 at p = 1 on the card: for each of ORACLE_RUNS in
+    turn (each freed before the next), fp32 with TF32 off, the measured
+    train step (SGD) against the oracle's projection, in two blocks:
+    self-calibrated (calibrated on the model it projects, the reference's
+    default) and calibrated on ResNet-50 (``calibrate_host_system`` on
+    ResNet-50 → a ClusterSpec on ``cuda_device_model``, then
+    ``validate(..., cluster=)`` for the other models). ResNet-50 is
+    calibrated once: its self-calibrated point is ``validate`` with its own
+    cluster, which at p = 1 is ``validate`` without one. Then, per model,
+    the oracle's projected memory (fp32 values, δ = 4 bytes, SGD's one
+    momentum: 4 bytes a parameter) beside the peak of the measured step of
+    ``validate(..., cluster=)``. Reports only; no accuracy is gated."""
+    ctx = ShardingCtx(dev)
+    self_rows, cross_rows, cluster = [], [], None
+    for arch, batch_size in ORACLE_RUNS:
+        cfg = get_config(arch)
+        mc = cfg.model
+        torch.cuda.empty_cache()
+        model = build_model(cfg, ctx, seed=0)
+        batch = Loader(train.data_config_for(mc, batch_size, seed=0),
+                       dev).batch_at(0)
+        stats = stats_for(mc)
+        fps = float(sum(st.flops_fwd for st in stats))
+        if cluster is None:
+            sysm = calibrate_host_system(lambda b: model.loss_fn(b, ctx),
+                                         model.parameters(), batch,
+                                         fps * batch_size)
+            cluster = ClusterSpec.from_system(sysm)
+            print(f"[oracle] calibrated on {arch} batch={batch_size}: "
+                  f"{sysm.name} peak_flops={sysm.peak_flops:.6g} "
+                  f"hbm_bw={sysm.hbm_bw:.6g} "
+                  f"mem_capacity={sysm.mem_capacity:.6g}", flush=True)
+            rows = self_rows
+        else:
+            (pt,) = validate(model, mc, batch, ctx, ["data"],
+                             flops_per_sample=fps, B=batch_size)
+            self_rows.append((arch, pt))
+            rows = cross_rows
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (pt,) = validate(model, mc, batch, ctx, ["data"],
+                         flops_per_sample=fps, B=batch_size, cluster=cluster)
+        peak = torch.cuda.max_memory_allocated()
+        rows.append((arch, pt))
+        proj = project("data", stats, TimeModel(cluster.system),
+                       OracleConfig(B=batch_size, D=batch_size, delta=4.0,
+                                    opt_bytes_per_param=4.0), 1)
+        print(f"[oracle] {arch} batch={batch_size} "
+              f"gflop_fwd_per_sample={fps / 1e9:.6g} "
+              f"params={model.num_params()} "
+              f"projected_mem_bytes={proj.mem_bytes:.6g} "
+              f"max_memory_allocated={peak}", flush=True)
+        del model, batch, pt
+        torch.cuda.empty_cache()
+    for arch, pt in self_rows + cross_rows:
+        if not all(math.isfinite(t) and t > 0 for t in (
+                pt.measured_s, pt.projected_s, pt.projected_serial_s)):
+            fail(f"[oracle] {arch}: measured {pt.measured_s} s, projected "
+                 f"{pt.projected_s} s, serial {pt.projected_serial_s} s")
+    mean_self = _oracle_rows("self-calibrated", self_rows)
+    mean_cross = _oracle_rows("calibrated-on-resnet50", cross_rows)
+    print(f"[oracle] mean accuracy: self-calibrated={mean_self * 100:.4g}% "
+          f"calibrated-on-resnet50={mean_cross * 100:.4g}% "
+          f"(paper: 86.74% on 1024 V100s)", flush=True)
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1011,8 +1165,10 @@ def main():
     rms = phase_rmsnorm(dev)
     flash = phase_flash(dev)
     ssd = phase_ssd(dev)
-    conv["launches"] = phase_eval()
-    phase_train()
+    conv["launches"] = sum(phase_eval(arch) for arch in EVAL_SITES)
+    for arch, batch in TRAIN_RUNS:
+        phase_train(arch, batch)
+    phase_oracle(dev)
     qwen = phase_serve(dev, "qwen1.5-4b")
     mamba = phase_serve(dev, "mamba2-780m")
     phase_fp32_serve(dev, "mamba2-780m")

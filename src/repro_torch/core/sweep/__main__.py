@@ -1,0 +1,10 @@
+"""Entry point: ``python -m repro_torch.core.sweep`` (see package docstring)."""
+import sys
+
+from . import main
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except BrokenPipeError:  # e.g. `... --csv | head` closing the pipe early
+        sys.exit(0)

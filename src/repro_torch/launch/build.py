@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig
-from ..models.cnn import ResNet, ResNetConfig
+from ..models.cnn import (CosmoFlow, CosmoFlowConfig, ResNet, ResNetConfig,
+                          VGG, VGGConfig)
 from ..models.transformer import LMConfig, TransformerLM
 from ..nn.module import ShardingCtx
 
@@ -22,9 +23,10 @@ def build_model(cfg: ArchConfig, ctx: ShardingCtx, smoke: bool = False,
     """The (smoke or full) model on ``ctx.device``, weights drawn from
     ``seed``."""
     mc = cfg.smoke_model if smoke else cfg.model
-    if isinstance(mc, ResNetConfig):
-        return ResNet(mc, device=ctx.device,
-                      generator=torch.Generator().manual_seed(seed))
+    cnns = {ResNetConfig: ResNet, VGGConfig: VGG, CosmoFlowConfig: CosmoFlow}
+    if type(mc) in cnns:
+        return cnns[type(mc)](mc, device=ctx.device,
+                              generator=torch.Generator().manual_seed(seed))
     if isinstance(mc, LMConfig):
         gen = torch.Generator(device=ctx.device).manual_seed(seed)
         return TransformerLM(mc, device=ctx.device, generator=gen)

@@ -3,12 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \
         --steps 3 --batch 32
 
-Builds the (smoke or full) model with weights drawn from ``--seed``, the
-deterministic synthetic loader and the train step, and runs a plain loop on
-``--device`` (``cuda`` unless told otherwise; without CUDA it raises). Like
-the JAX trainer it trains without ``use_pallas``: the implicit-GEMM kernel
-has no backward yet. Checkpointing, ``--strategy auto``, ``--elastic`` and
-pipelines come with later slices.
+Trains the paper's CNNs (``--arch`` resnet50, resnet152, vgg16 or
+cosmoflow): builds the (smoke or full) model with weights drawn from
+``--seed``, the deterministic synthetic loader (images, or volumes for
+CosmoFlow) and the train step, and runs a plain loop on ``--device``
+(``cuda`` unless told otherwise; without CUDA it raises). Like the JAX
+trainer it trains without ``use_pallas``: the implicit-GEMM kernel has no
+backward yet. LM training, checkpointing, ``--strategy auto``,
+``--elastic`` and pipelines come with later slices.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from ..configs import get_config
 from ..data.pipeline import DataConfig, Loader
-from ..models.cnn import ResNetConfig
+from ..models.cnn import CosmoFlowConfig, ResNetConfig, VGGConfig
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
 from ..training.steps import make_train_step, train_state
@@ -27,9 +29,12 @@ from .build import build_model
 
 
 def data_config_for(mc, batch: int, seed: int = 0) -> DataConfig:
-    if isinstance(mc, ResNetConfig):
-        return DataConfig("image", batch, image=224, classes=mc.n_classes,
-                          seed=seed)
+    if isinstance(mc, (ResNetConfig, VGGConfig)):
+        return DataConfig("image", batch, image=getattr(mc, "img", 224),
+                          classes=mc.n_classes, seed=seed)
+    if isinstance(mc, CosmoFlowConfig):
+        return DataConfig("volume", batch, image=mc.img, channels=mc.in_ch,
+                          n_targets=mc.n_targets, seed=seed)
     raise TypeError(f"{type(mc).__name__} is not ported yet")
 
 

@@ -21,10 +21,18 @@ from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_combine
 from repro_torch.kernels.ssd_scan.ssd_scan import chunk_outputs, ssd_chunk
 from repro_torch.configs import get_config
+from repro_torch.core.calibration import calibrate_host_system
+from repro_torch.core.cluster import ClusterSpec
+from repro_torch.core.layer_stats import stats_for
+from repro_torch.core.validation import validate
+from repro_torch.data.pipeline import Loader
+from repro_torch.launch import train
+from repro_torch.launch.build import build_model
 from repro_torch.kernels.util import largest_divisor, same_pads
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.nn.module import ShardingCtx, resolve_device, zeros_like_spec
-from repro_torch.training.steps import make_decode_step, make_prefill_step
+from repro_torch.training.steps import (make_decode_step, make_eval_step,
+                                        make_prefill_step)
 
 
 @pytest.fixture()
@@ -349,3 +357,49 @@ def test_mamba_smoke_kernel_path_matches_plain(cuda):
         outs.append(torch.cat(seq, 1))
     scale = float(outs[1].abs().max())
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_vgg16_smoke_eval_launches_conv2d_gemm_13_times(cuda):
+    """The smoke VGG16 (full widths, 32 px) on the card: the use_pallas
+    forward runs its 13 HaloConvs on the kernel, and its logits agree with
+    the plain path within 1e-3 of |plain| + max|plain| (the logits shrink
+    through 16 layers without BatchNorm, so the bar follows their scale)."""
+    cfg = get_config("vgg16")
+    model = build_model(cfg, ShardingCtx(cuda), smoke=True)
+    batch = Loader(train.data_config_for(cfg.smoke_model, 8), cuda).batch_at(0)
+    before = conv2d_gemm.launches
+    out_k = make_eval_step(model, ShardingCtx(cuda, use_pallas=True))(batch)
+    torch.cuda.synchronize()
+    assert conv2d_gemm.launches == before + 13
+    out_p = make_eval_step(model, ShardingCtx(cuda))(batch)
+    assert conv2d_gemm.launches == before + 13
+    scale = float(out_p["outputs"].abs().max())
+    torch.testing.assert_close(out_k["outputs"], out_p["outputs"], rtol=1e-3,
+                               atol=1e-3 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["vgg16", "cosmoflow"])
+def test_validate_on_the_card_returns_finite_points(cuda, arch):
+    """The smoke models, self-calibrated and with a cluster calibrated on the
+    card: one "data" point each, measured and projected finite and
+    positive; the card's system model holds its own memory and a measured
+    HBM rate."""
+    cfg = get_config(arch)
+    mc = cfg.smoke_model
+    ctx = ShardingCtx(cuda)
+    model = build_model(cfg, ctx, smoke=True)
+    batch = Loader(train.data_config_for(mc, 4), cuda).batch_at(0)
+    fps = float(sum(s.flops_fwd for s in stats_for(mc)))
+    sysm = calibrate_host_system(lambda b: model.loss_fn(b, ctx),
+                                 model.parameters(), batch, 4 * fps)
+    props = torch.cuda.get_device_properties(cuda)
+    assert sysm.mem_capacity == props.total_memory
+    assert 1e11 < sysm.hbm_bw < 1e14 and sysm.peak_flops > 0
+    for cluster in (None, ClusterSpec.from_system(sysm)):
+        (pt,) = validate(model, mc, batch, ctx, ["serial", "data"],
+                         flops_per_sample=fps, B=4, cluster=cluster)
+        assert (pt.strategy, pt.p) == ("data", 1)
+        for t in (pt.measured_s, pt.projected_s, pt.projected_serial_s):
+            assert math.isfinite(t) and t > 0

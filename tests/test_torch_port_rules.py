@@ -103,7 +103,7 @@ def test_bridge_rejects_a_mismatched_tree():
 
 def test_unported_arch_names_the_known_ones():
     with pytest.raises(KeyError, match="resnet152"):
-        get_config("vgg16")
+        get_config("qwen3-32b")
 
 
 def test_train_without_device_raises_where_cuda_is_absent(monkeypatch):
