@@ -52,6 +52,21 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              self-calibrated and calibrated on ResNet-50 (two accuracy
              tables and their means), and the projected memory beside the
              step's peak.
+  5c. parallel  the paper's CNN strategies across ranks: PAR_RANKS ranks
+             share the card over gloo on a (2, 2) (data, model) mesh,
+             spawned after the build. The ds-sharded ResNet-50 and VGG16
+             eval with use_pallas (batch 32, 224²): conv2d_gemm launches per
+             rank against the count the site list gives (a stride-1 site
+             whose image splits runs the pad_h=False entry on its interior
+             and two boundary tiles), logits gathered and held against the
+             single-process kernel path within EVAL_TOL; 2 SGD steps of
+             ResNet-50 under data, filter, channel, ds and df and of
+             CosmoFlow under data and ds, the first loss, the first
+             step's gradient norm and the second loss against two
+             single-process steps within PAR_LOSS_TOL and PAR_STEP_TOL;
+             Fig. 3 at p = 4 (calibrate_cluster on the mesh, then
+             validate; reported, gated on finiteness only) and the
+             phase's wall time.
   6. serve   Qwen1.5-4B at full width in bf16, random weights from seed 0:
              a prompt pass over 4 prompts of 2048 tokens, then 32 greedy
              decode steps into a cache of 2080 positions, with use_pallas:
@@ -114,8 +129,10 @@ from repro_torch.kernels.util import (cdiv, largest_divisor,  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.build import build_model  # noqa: E402
 from repro_torch.nn.module import ShardingCtx, zeros_like_spec  # noqa: E402
+from repro_torch.optim.optimizers import OptimizerConfig  # noqa: E402
 from repro_torch.training.steps import (make_decode_step,  # noqa: E402
-                                        make_eval_step, make_prefill_step)
+                                        make_eval_step, make_prefill_step,
+                                        make_train_step, train_state)
 
 BATCH = 32
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32 outside the
@@ -185,6 +202,53 @@ TRAIN_RUNS = (("resnet50", 32), ("vgg16", 32), ("cosmoflow", 8))
 ORACLE_RUNS = tuple(ORACLE_BATCH.items())
 SOURCE = "src/repro_torch/kernels/csrc/conv2d_gemm.cu"
 REPLACES = "src/repro/kernels/conv2d_gemm/conv2d_gemm.py:83"
+
+# The parallel phase: PAR_RANKS ranks share cuda:0 over gloo (NCCL refuses
+# two ranks on one device) on a (PAR_RANKS / PAR_MODEL, PAR_MODEL) mesh.
+PAR_RANKS, PAR_MODEL = 4, 2
+# sharded eval with the kernel: (arch, the image's height at each HaloConv
+# site, in order, and the site's stride), batch 32, 224², under ds
+PAR_EVAL_SITES = {
+    "resnet50": [(224, 7, 2)] + [(56, 3, 1)] * 3
+    + [(56, 3, 2)] + [(28, 3, 1)] * 3
+    + [(28, 3, 2)] + [(14, 3, 1)] * 5
+    + [(14, 3, 2)] + [(7, 3, 1)] * 2,
+    "vgg16": [(224, 3, 1)] * 2 + [(112, 3, 1)] * 2 + [(56, 3, 1)] * 3
+    + [(28, 3, 1)] * 3 + [(14, 3, 1)] * 3,
+}
+# sharded training, 2 SGD steps each: (arch, global batch, strategies)
+PAR_TRAIN = (("resnet50", 32, ("data", "filter", "channel", "ds", "df")),
+             ("cosmoflow", 8, ("data", "ds")))
+# each strategy's two steps against two single-process steps from the same
+# weights and batch, relative: the first loss (the forward) within
+# PAR_LOSS_TOL; the first step's whole-model gradient norm before clipping
+# (the backward: the collectives' adjoints, the halo's returned rows, the
+# replica sums and the sharded norm) and the second loss (the update)
+# within PAR_STEP_TOL. Both sides are the same fp32 function with its sums
+# in another order (cuDNN picks its algorithm per local shape; BatchNorm's
+# statistics are all-reduced sums; the loss a sum over the ranks' rows):
+# the CPU tests read ≤ 1.7e-6 for the smoke models' losses. The backward
+# carries those roundings further (BatchNorm's backward subtracts means of
+# products; a ReLU input near zero rounds to the other side), hence the
+# second bar: on an H100 the five ResNet-50 strategies read 1.4e-5 to
+# 1.7e-4 in the norm (data, which splits no weight, 7.2e-5), and the
+# phase prints the same function's own spread beside them (the
+# single-process steps on the batch with its rows permuted). A gradient p
+# times too large reads p − 1 in the norm, a replicated gradient left
+# unsummed over two replicas about 0.3 to 0.5, and either moves the second
+# loss by percents; a statistic wrong by a factor moves the first loss by
+# O(1).
+PAR_LOSS_TOL = 1e-5
+PAR_STEP_TOL = 1e-3
+# Fig. 3 at p = 4: (arch, global batch, oracle strategies); "spatial" is
+# measured under the ds rules, as the reference does. At ResNet-50's batch
+# 32 its points took 113 s on an H100 (filter and channel move whole
+# activations through host-staged collectives at every layer: 6.4 and 5.5 s
+# a step), which pushed the phase past 3 minutes; so ResNet-50 runs at
+# global batch 16, and CosmoFlow at its own ORACLE_BATCH of 8.
+PAR_ORACLE = (("resnet50", 16, ("data", "filter", "channel", "spatial",
+                                "df", "ds")),
+              ("cosmoflow", ORACLE_BATCH["cosmoflow"], ("data", "spatial")))
 
 # (name, rows, D, dtype): the Qwen1.5-4B norms of a prompt pass (4 x 2048
 # tokens) and of a decode step (4 tokens), a prime row count, and the
@@ -1100,7 +1164,8 @@ def phase_oracle(dev):
     cluster, which at p = 1 is ``validate`` without one. Then, per model,
     the oracle's projected memory (fp32 values, δ = 4 bytes, SGD's one
     momentum: 4 bytes a parameter) beside the peak of the measured step of
-    ``validate(..., cluster=)``. Reports only; no accuracy is gated."""
+    ``validate(..., cluster=)``. Reports only; no accuracy is gated. Returns
+    the card's HBM rate as measured for the calibration."""
     ctx = ShardingCtx(dev)
     self_rows, cross_rows, cluster = [], [], None
     for arch, batch_size in ORACLE_RUNS:
@@ -1153,6 +1218,233 @@ def phase_oracle(dev):
     print(f"[oracle] mean accuracy: self-calibrated={mean_self * 100:.4g}% "
           f"calibrated-on-resnet50={mean_cross * 100:.4g}% "
           f"(paper: 86.74% on 1024 V100s)", flush=True)
+    return cluster.system.hbm_bw
+
+
+def _halo_launches(sites, m: int) -> int:
+    """conv2d_gemm launches of one sharded forward on each rank, from the
+    site list: a stride-1 site whose image splits over the m model ranks
+    takes the halo path, 3 launches (interior, top and bottom tiles; 1, the
+    serial tile, where the block is no taller than the halo), every other
+    site 1 (the whole image, its H gathered)."""
+    n = 0
+    for h, k, s in sites:
+        lo, hi = (k - 1) // 2, k // 2
+        if s == 1 and m > 1 and h % m == 0 and h // m >= max(lo, hi):
+            n += 3 if h // m > lo + hi else 1
+        else:
+            n += 1
+    return n
+
+
+def _parallel_rank(mesh, hbm_bw: float):
+    """One rank of the parallel phase; rank 0 returns what the parent
+    checks and prints (the others their launch counts)."""
+    from repro_torch.core.calibration import calibrate_cluster
+    from repro_torch.core.hardware import cuda_device_model
+    from repro_torch.launch.build import shard_batch
+    from repro_torch.parallel.strategies import make_rules
+    dev = mesh.device
+    out = {"launches": {}, "logits": {}, "train": {}, "oracle": {}}
+    for arch in PAR_EVAL_SITES:
+        ctx = ShardingCtx(dev, use_pallas=True, mesh=mesh,
+                          rules=make_rules("ds"))
+        cfg = get_config(arch)
+        model = build_model(cfg, ctx, seed=0)
+        batch = shard_batch(Loader(train.data_config_for(
+            cfg.model, BATCH, seed=0), dev).batch_at(0), ctx)
+        conv2d_gemm.launches = 0
+        res = make_eval_step(model, ctx)(batch)
+        torch.cuda.synchronize(dev)
+        out["launches"][arch] = conv2d_gemm.launches
+        out["logits"][arch] = res["outputs"].full().cpu()
+        del model, batch, res
+        torch.cuda.empty_cache()
+    for arch, batch_size, strategies in PAR_TRAIN:
+        cfg = get_config(arch)
+        whole = Loader(train.data_config_for(cfg.model, batch_size, seed=0),
+                       dev).batch_at(0)
+        for s in strategies:
+            ctx = ShardingCtx(dev, mesh=mesh, rules=make_rules(s))
+            model = build_model(cfg, ctx, seed=0)
+            opt = OptimizerConfig(name="sgd", lr=3e-3)
+            step = make_train_step(model, opt, ctx)
+            state, batch = train_state(model, opt), shard_batch(whole, ctx)
+            losses, norms, ms = [], [], []
+            for _ in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out["train"][arch, s] = (losses, norms, ms,
+                                     torch.cuda.max_memory_allocated(dev))
+            del model, state, step, batch
+            torch.cuda.empty_cache()
+        del whole
+    whole_ctx = ShardingCtx(dev)
+    cluster = None
+    for arch, batch_size, strategies in PAR_ORACLE:
+        cfg = get_config(arch)
+        model = build_model(cfg, whole_ctx, seed=0)
+        batch = Loader(train.data_config_for(cfg.model, batch_size, seed=0),
+                       dev).batch_at(0)
+        fps = float(sum(st.flops_fwd for st in stats_for(cfg.model)))
+        t0 = time.perf_counter()
+        if cluster is None:
+            base = ClusterSpec.from_system(cuda_device_model(
+                dev, hbm_bw=hbm_bw, flops=0.0))
+            cluster, ms = calibrate_cluster(
+                mesh, base=base, loss_fn=lambda b: model.loss_fn(
+                    b, whole_ctx), params=model.parameters(), batch=batch,
+                flops_per_step=fps * batch_size)
+            out["cluster"] = (cluster, [m.to_json() for m in ms],
+                              time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        pts = validate(model, cfg.model, batch, ShardingCtx(dev, mesh=mesh),
+                       list(strategies), flops_per_sample=fps, B=batch_size,
+                       cluster=cluster)
+        out["oracle"][arch] = (batch_size, pts, time.perf_counter() - t0)
+        del model, batch
+        torch.cuda.empty_cache()
+    return out if mesh.rank == 0 else {"launches": out["launches"]}
+
+
+def _two_sgd_steps(cfg, ctx, batch) -> tuple:
+    """Two SGD steps of a model from seed 0: (first loss, the first step's
+    gradient norm before clipping, second loss)."""
+    model = build_model(cfg, ctx, seed=0)
+    opt = OptimizerConfig(name="sgd", lr=3e-3)
+    step, state = make_train_step(model, opt, ctx), train_state(model, opt)
+    state, m0 = step(state, batch)
+    state, m1 = step(state, batch)
+    return float(m0["loss"]), float(m0["grad_norm"]), float(m1["loss"])
+
+
+def phase_parallel(dev, hbm_bw: float) -> int:
+    """The paper's CNN strategies across ranks on the card: PAR_RANKS ranks
+    share it over gloo (spawned after the build, so no rank compiles).
+    Sharded eval with the kernel (ResNet-50 and VGG16, batch 32, ds, the
+    stride-1 3×3 sites on conv2d_gemm's pad_h=False entry): launches per
+    rank against the site list, logits gathered and held against the
+    single-process kernel path within EVAL_TOL. Sharded training: 2 SGD
+    steps per strategy of PAR_TRAIN, the first loss, the first step's
+    gradient norm and the second loss against two single-process steps
+    within PAR_LOSS_TOL and PAR_STEP_TOL. Fig. 3 at p = 4:
+    calibrate_cluster on the mesh, then validate over PAR_ORACLE; reported,
+    gated on finiteness only. Returns the kernel's launches over all
+    ranks."""
+    t_phase = time.perf_counter()
+    refs = {"logits": {}, "train": {}, "floor": {}}
+    ctx_k = ShardingCtx(dev, use_pallas=True)
+    for arch in PAR_EVAL_SITES:
+        cfg = get_config(arch)
+        model = build_model(cfg, ctx_k, seed=0)
+        batch = Loader(train.data_config_for(cfg.model, BATCH, seed=0),
+                       dev).batch_at(0)
+        refs["logits"][arch] = make_eval_step(model, ctx_k)(batch)[
+            "outputs"].cpu()
+        del model, batch
+    ctx_p = ShardingCtx(dev)
+    for arch, batch_size, _ in PAR_TRAIN:
+        cfg = get_config(arch)
+        batch = Loader(train.data_config_for(cfg.model, batch_size, seed=0),
+                       dev).batch_at(0)
+        perm = torch.randperm(batch_size, generator=torch.Generator(
+            ).manual_seed(1)).to(dev)
+        refs["train"][arch] = _two_sgd_steps(cfg, ctx_p, batch)
+        refs["floor"][arch] = _two_sgd_steps(
+            cfg, ctx_p, {k: v[perm] for k, v in batch.items()})
+        del batch
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    from repro_torch.launch.spawn import run_ranks
+    results = run_ranks(_parallel_rank, PAR_RANKS, hbm_bw, backend="gloo",
+                        device="cuda", model=PAR_MODEL, timeout_s=900)
+    r0 = results[0]
+    note = (f"{PAR_RANKS} ranks timesharing one card over gloo (host-staged "
+            f"collectives): the counterpart of the reference's virtual host "
+            f"devices, not a {PAR_RANKS}-GPU machine")
+    print(f"[parallel] mesh (data={PAR_RANKS // PAR_MODEL}, "
+          f"model={PAR_MODEL}); {note}; single-process references "
+          f"{t_ref:.3g} s", flush=True)
+    total = 0
+    for arch, sites in PAR_EVAL_SITES.items():
+        want = _halo_launches(sites, PAR_MODEL)
+        got = [r["launches"][arch] for r in results]
+        total += sum(got)
+        logits, ref = r0["logits"][arch], refs["logits"][arch]
+        scale = float(ref.abs().max())
+        ratio = _bar_ratio(logits, ref, EVAL_TOL, EVAL_TOL * min(scale, 1.0))
+        print(f"[parallel] eval {arch} ds use_pallas batch={BATCH} "
+              f"conv2d_gemm launches per rank={got} (site list: {want}) "
+              f"logits vs single-process kernel path: max_abs_diff="
+              f"{float((logits - ref).abs().max()):.3g} "
+              f"logit_scale={scale:.4g} bar_ratio={ratio:.3g}", flush=True)
+        if got != [want] * PAR_RANKS:
+            fail(f"[parallel] {arch}: conv2d_gemm launched {got} times per "
+                 f"rank, the site list gives {want}")
+        if tuple(logits.shape) != (BATCH, 1000) or ratio > 1.0:
+            fail(f"[parallel] {arch} sharded eval logits: shape "
+                 f"{tuple(logits.shape)}, {ratio} times the bar")
+    for arch, floor in refs["floor"].items():
+        rel = [abs(g - w) / abs(w) for g, w in zip(floor,
+                                                    refs["train"][arch])]
+        print(f"[parallel] train {arch} single_process on the batch's rows "
+              f"permuted (the sum-order spread of the same function): "
+              f"rel_diff: loss1={rel[0]:.3g} grad_norm1={rel[1]:.3g} "
+              f"loss2={rel[2]:.3g}", flush=True)
+    for (arch, s), (losses, norms, ms, peak) in r0["train"].items():
+        got = (losses[0], norms[0], losses[1])
+        want = refs["train"][arch]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        bars = (PAR_LOSS_TOL, PAR_STEP_TOL, PAR_STEP_TOL)
+        print(f"[parallel] train {arch} {s} losses="
+              f"{','.join(f'{v:.7g}' for v in losses)} grad_norm_step1="
+              f"{norms[0]:.7g} single_process: loss1={want[0]:.7g} "
+              f"grad_norm1={want[1]:.7g} loss2={want[2]:.7g} rel_diff: "
+              f"loss1={rel[0]:.3g} (bar {bars[0]}) grad_norm1={rel[1]:.3g} "
+              f"loss2={rel[2]:.3g} (bar {bars[1]}) step_ms="
+              f"{','.join(f'{v:.4g}' for v in ms)} "
+              f"max_memory_allocated_rank0={peak}", flush=True)
+        if not all(math.isfinite(v) for v in got) or any(
+                r > bar for r, bar in zip(rel, bars)):
+            fail(f"[parallel] {arch} {s}: (loss1, grad_norm1, loss2) {got} "
+                 f"against the single-process {want}: {rel} relative (bars "
+                 f"{bars})")
+    cluster, ms, t_cal = r0["cluster"]
+    print(f"[parallel] calibrate_cluster on the mesh ({t_cal:.3g} s): "
+          f"peak_flops per rank={cluster.peak_flops:.6g} "
+          + " ".join(f"{a}: alpha={cluster.level(a).alpha:.4g} "
+                     f"beta={cluster.level(a).beta:.4g}"
+                     for a in ("data", "model"))
+          + f" phi={dict(cluster.phi or ())} sigma={dict(cluster.sigma or ())}",
+          flush=True)
+    print(f"[parallel] fig3 runs at global batch "
+          f"{ {a: b for a, b, _ in PAR_ORACLE} } (the p = 1 block's: "
+          f"{dict(ORACLE_BATCH)}): see PAR_ORACLE", flush=True)
+    rows = []
+    for arch, (batch_size, pts, t_val) in r0["oracle"].items():
+        lines = accuracy_report(pts).splitlines()
+        print(f"[parallel] fig3 p={PAR_RANKS} {arch} batch={batch_size} "
+              f"({t_val:.3g} s) {lines[0]}", flush=True)
+        for line in lines[1:-1]:
+            print(f"[parallel] fig3 p={PAR_RANKS} {arch} "
+                  f"batch={batch_size} {line}", flush=True)
+        for pt in pts:
+            if not all(math.isfinite(t) and t > 0 for t in (
+                    pt.measured_s, pt.projected_s, pt.projected_serial_s)):
+                fail(f"[parallel] {arch} {pt.strategy}: measured "
+                     f"{pt.measured_s} s, projected {pt.projected_s} s")
+        rows += pts
+    print(f"[parallel] mean accuracy at p={PAR_RANKS}: "
+          f"{statistics.mean(pt.accuracy for pt in rows) * 100:.4g}% "
+          f"(serial-comm {statistics.mean(pt.accuracy_serial for pt in rows) * 100:.4g}%; "
+          f"{note}; reported, not gated)", flush=True)
+    print(f"[parallel] phase wall time {time.perf_counter() - t_phase:.4g} s",
+          flush=True)
+    return total
 
 
 def main():
@@ -1168,7 +1460,8 @@ def main():
     conv["launches"] = sum(phase_eval(arch) for arch in EVAL_SITES)
     for arch, batch in TRAIN_RUNS:
         phase_train(arch, batch)
-    phase_oracle(dev)
+    hbm_bw = phase_oracle(dev)
+    conv["launches"] += phase_parallel(dev, hbm_bw)
     qwen = phase_serve(dev, "qwen1.5-4b")
     mamba = phase_serve(dev, "mamba2-780m")
     phase_fp32_serve(dev, "mamba2-780m")

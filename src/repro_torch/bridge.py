@@ -10,7 +10,10 @@ copied as it is, never transposed; bf16 leaves (numpy arrays of
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) go through their
 16-bit pattern. Any leaf that is missing, extra, or of the wrong shape or
 dtype raises, so a parity test cannot run on a partly filled model. A model
-on the ``meta`` device is checked, not filled.
+on the ``meta`` device is checked, not filled. A model whose parameters are
+one rank's blocks (``parallel.sharded.shard_params``) is checked against the
+whole leaves and takes each leaf's block (``p.shard_index``); so are the
+optimizer moments of its train state.
 """
 from __future__ import annotations
 
@@ -64,14 +67,23 @@ def _to_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _whole_shape(t: torch.Tensor) -> tuple:
+    return tuple(getattr(t, "global_shape", t.shape))
+
+
 @torch.no_grad()
-def _copy_into(targets: dict[str, torch.Tensor], tree, what: str) -> None:
+def _copy_into(targets: dict[str, torch.Tensor], tree, what: str,
+               blocks: dict[str, torch.Tensor] | None = None) -> None:
+    """``blocks``: the parameters whose placement the targets share (the
+    targets themselves unless given)."""
+    blocks = targets if blocks is None else blocks
     leaves = _unstack_layers(flatten(tree))
     missing = sorted(set(targets) - set(leaves))
     extra = sorted(set(leaves) - set(targets))
-    wrong = [f"{k}: {tuple(np.shape(leaves[k]))} != {tuple(targets[k].shape)}"
+    wrong = [f"{k}: {tuple(np.shape(leaves[k]))} != "
+             f"{_whole_shape(blocks[k])}"
              for k in sorted(set(targets) & set(leaves))
-             if tuple(np.shape(leaves[k])) != tuple(targets[k].shape)]
+             if tuple(np.shape(leaves[k])) != _whole_shape(blocks[k])]
     if missing or extra or wrong:
         raise ValueError(f"{what} tree does not match the port: missing "
                          f"{missing}, extra {extra}, wrong shape {wrong}")
@@ -80,7 +92,8 @@ def _copy_into(targets: dict[str, torch.Tensor], tree, what: str) -> None:
         if dtype != t.dtype:
             raise ValueError(f"{what} leaf {k}: dtype {dtype} != {t.dtype}")
         if t.device.type != "meta":
-            t.copy_(_to_tensor(leaves[k]))
+            whole = _to_tensor(leaves[k])
+            t.copy_(whole[getattr(blocks[k], "shard_index", ...)])
 
 
 def load_jax_params(model: torch.nn.Module, tree) -> None:
@@ -97,5 +110,5 @@ def load_jax_state(state: dict, tree) -> None:
         raise ValueError(f"optimizer state keys {sorted(tree['opt'])} != "
                          f"{sorted(state['opt'])}")
     for k, moments in state["opt"].items():
-        _copy_into(moments, tree["opt"][k], f"opt/{k}")
+        _copy_into(moments, tree["opt"][k], f"opt/{k}", state["params"])
     state["step"] = int(np.asarray(tree["step"]))

@@ -147,9 +147,9 @@ def cuda_device_model(device: torch.device | str, *, hbm_bw: float,
     per second) and ``flops`` come from measurements on the card
     (``calibration.measure_hbm_bw``, ``calibration.calibrate_compute``), so
     nothing here is a datasheet number. The interconnect levels are
-    placeholders, ``cpu_host_model``'s: one card runs at p = 1, where the
-    data allreduce, the only term of the "data" row that reads them, is
-    0."""
+    placeholders, ``cpu_host_model``'s: at p = 1 the data allreduce, the
+    only term of the "data" row that reads them, is 0; across ranks
+    ``calibration.calibrate_cluster`` fits them on the mesh."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"cuda_device_model describes a CUDA device, "

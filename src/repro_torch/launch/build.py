@@ -1,11 +1,17 @@
-"""Model construction (counterpart of ``repro.launch.build.build_model``; cells,
-meshes and abstract inputs come with the parallel slice).
+"""Model construction and the batch's placement (counterparts of
+``repro.launch.build.build_model`` and ``cnn_batch_specs``; the dry-run's
+cells and abstract inputs are not ported, ROADMAP queue 1 item 12).
 
 CNN weights are drawn on the host and moved, so one seed gives the same
 weights on every device. LM weights are drawn where they will live, in the
 config's dtype, from a generator on that device: the full Qwen1.5-4B holds
 3,950,369,280 parameters (7.9 GB in bf16), which a host draw in fp32 would
 take tens of seconds and 16 GB to make.
+
+Across ranks (``ctx.sharded``) every rank builds the whole CNN from the same
+seed and keeps its blocks (``shard_params``), and draws the same whole batch
+from the seeded stream and keeps its ("batch", "spatial") block
+(``shard_batch``).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from ..models.cnn import (CosmoFlow, CosmoFlowConfig, ResNet, ResNetConfig,
                           VGG, VGGConfig)
 from ..models.transformer import LMConfig, TransformerLM
 from ..nn.module import ShardingCtx
+from ..parallel.sharded import Sharded, placement, shard_params
 
 
 def build_model(cfg: ArchConfig, ctx: ShardingCtx, smoke: bool = False,
@@ -25,9 +32,32 @@ def build_model(cfg: ArchConfig, ctx: ShardingCtx, smoke: bool = False,
     mc = cfg.smoke_model if smoke else cfg.model
     cnns = {ResNetConfig: ResNet, VGGConfig: VGG, CosmoFlowConfig: CosmoFlow}
     if type(mc) in cnns:
-        return cnns[type(mc)](mc, device=ctx.device,
-                              generator=torch.Generator().manual_seed(seed))
+        model = cnns[type(mc)](mc, device=ctx.device,
+                               generator=torch.Generator().manual_seed(seed))
+        return shard_params(model, ctx) if ctx.sharded else model
+    if ctx.sharded:
+        raise NotImplementedError(
+            f"{type(mc).__name__} across ranks is not ported: the LMs run on "
+            f"one device (LM training is ROADMAP queue 1 item 4)")
     if isinstance(mc, LMConfig):
         gen = torch.Generator(device=ctx.device).manual_seed(seed)
         return TransformerLM(mc, device=ctx.device, generator=gen)
     raise TypeError(f"{type(mc).__name__} is not ported yet")
+
+
+def batch_axes(name: str, ndim: int) -> tuple:
+    """The logical axes of a CNN batch leaf: the images (batch, spatial,
+    ...), labels (batch,), targets (batch, None), as ``cnn_batch_specs``."""
+    if name == "images":
+        return ("batch", "spatial") + (None,) * (ndim - 2)
+    return ("batch",) + (None,) * (ndim - 1)
+
+
+def shard_batch(batch: dict, ctx: ShardingCtx) -> dict:
+    """This rank's blocks of a whole CNN batch that every rank holds, placed
+    by the rules (the batch as it is where nothing is sharded)."""
+    if not ctx.sharded:
+        return batch
+    return {k: Sharded.of(v, placement(ctx.mesh, ctx.pspec(
+        batch_axes(k, v.dim()), v.shape)), ctx.mesh)
+        for k, v in batch.items()}

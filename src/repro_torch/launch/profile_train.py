@@ -1,24 +1,42 @@
-"""Where the time of a CNN training step goes, on one GPU.
+"""Where the time of a CNN training step goes, on one GPU or on one rank of
+a sharded step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        [--arch resnet50|resnet152|vgg16|cosmoflow]
+        [--arch resnet50|resnet152|vgg16|cosmoflow] [--strategies data,ds]
 
 Builds the CNN at its full config (fp32, TF32 off, random weights from seed
 0) and the train step the oracle's validation measures (SGD,
 ``core.validation.measure_step``), warms up 2 steps, then traces 2 steps
-with ``torch.profiler`` (CPU and CUDA activities). Prints, as
-``profile_serve`` does: the host time, the summed device time of the
-kernels, the device's busy share, the number of device events and the ten
-kernels with the most device time. The batch is the model's
+with ``torch.profiler`` (CPU and CUDA activities). The batch is the model's
 ``configs.cnn_archs.ORACLE_BATCH``, as in ``chip_smoke.py``'s oracle phase.
 Imports nothing of jax or of the JAX package; needs CUDA.
+
+Without ``--strategies``: one process on the card. Prints, as
+``profile_serve`` does, the host time, the summed device time of the
+kernels, the device's busy share, the number of device events and the ten
+kernels with the most device time.
+
+With ``--strategies``: RANKS ranks (``launch.spawn``) share cuda:0 over
+gloo on a (RANKS / MODEL_AXIS, MODEL_AXIS) mesh, as ``chip_smoke.py``'s
+parallel phase runs them; the batch is global. For each strategy the
+sharded model is built and warmed up on every rank, then rank 0 traces its
+2 steps while the others run them untraced. Prints per strategy: the host
+time of a step, the device time of rank 0's kernels and of its copies (the
+host staging of gloo's collectives is device-to-host and host-to-device
+copies), the host time inside the collectives (the ``comm.*`` spans of
+``parallel/collectives.py`` and ``parallel/halo.py``: staging, transfer and
+the wait for the other ranks), and the five kernels with the most device
+time. Ranks that share a card compete for it, so rank 0's device time is
+its own share.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
@@ -26,40 +44,130 @@ from ..configs.cnn_archs import ORACLE_BATCH
 from ..data.pipeline import Loader
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
+from ..parallel.strategies import make_rules
 from ..training.steps import make_train_step, train_state
-from .build import build_model
+from .build import build_model, shard_batch
 from .profile_serve import report
-from .train import data_config_for
+from .spawn import run_ranks
+from .train import CNN_STRATEGIES, data_config_for
 
 STEPS = 2
+RANKS, MODEL_AXIS = 4, 2
+ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+# spans that are not kernels: the port's ``comm.*`` and the backends'
+# own annotations, which the profiler also shows on the device's timeline
+_SPANS = ("comm.", "gloo:", "nccl:", "record_param_comms")
+
+
+def _warm_step(arch: str, ctx: ShardingCtx):
+    """The SGD step of ``arch`` at its oracle batch under ``ctx``, after 2
+    warm-up steps: (step, state, batch)."""
+    cfg = get_config(arch)
+    model = build_model(cfg, ctx, seed=0)
+    batch = Loader(data_config_for(cfg.model, ORACLE_BATCH[arch]),
+                   ctx.device).batch_at(0)
+    if ctx.sharded:
+        batch = shard_batch(batch, ctx)
+    opt = OptimizerConfig(name="sgd")
+    step, state = make_train_step(model, opt, ctx), train_state(model, opt)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize(ctx.device)
+    return step, state, batch
+
+
+def _traced(step, state, batch, device, traced: bool):
+    """Runs STEPS steps, under the profiler if ``traced``; (profile or
+    None, host seconds)."""
+    with (profile(activities=ACTIVITIES) if traced else
+          contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize(device)
+        return prof, time.perf_counter() - t0
+
+
+def _summary(prof, host_s: float) -> dict:
+    """Per step: rank 0's kernel and copy time on the device, and its host
+    time inside each ``comm.*`` span (from the raw events, so a span's
+    host and device records are not merged)."""
+    kernels, copies, comm = {}, 0.0, {}
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.device_type == DeviceType.CUDA:
+            if e.name.startswith(_SPANS):
+                continue
+            if "memcpy" in e.name.lower() or "memset" in e.name.lower():
+                copies += us
+            else:
+                k = kernels.setdefault(e.name, [0.0, 0])
+                k[0] += us
+                k[1] += 1
+        elif e.name.startswith("comm."):
+            comm[e.name] = comm.get(e.name, 0.0) + us
+    top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:5]
+    return {
+        "host_ms": host_s * 1e3 / STEPS,
+        "kernel_ms": sum(v[0] for v in kernels.values()) / 1e3 / STEPS,
+        "copy_ms": copies / 1e3 / STEPS,
+        "comm_host_ms": {k: v / 1e3 / STEPS for k, v in comm.items()},
+        "top": [(k[:70], v[0] / 1e3 / STEPS, v[1] // STEPS) for k, v in top],
+    }
+
+
+def _rank(mesh, arch: str, strategies: tuple) -> dict:
+    out = {}
+    for s in strategies:
+        ctx = ShardingCtx(mesh.device, mesh=mesh, rules=make_rules(s))
+        step, state, batch = _warm_step(arch, ctx)
+        prof, host_s = _traced(step, state, batch, mesh.device,
+                               mesh.rank == 0)
+        if mesh.rank == 0:
+            out[s] = _summary(prof, host_s)
+        del step, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _report_sharded(arch: str, res: dict) -> None:
+    for s, r in res.items():
+        name = f"{arch}_b{ORACLE_BATCH[arch]}_{s}_p{RANKS}"
+        comm = sum(r["comm_host_ms"].values())
+        print(f"[profile] {name}: host_ms_per_step={r['host_ms']:.6g} "
+              f"rank0_kernel_ms={r['kernel_ms']:.6g} "
+              f"rank0_copy_ms={r['copy_ms']:.6g} comm_host_ms={comm:.6g} ("
+              + " ".join(f"{k}={v:.4g}" for k, v in
+                         sorted(r["comm_host_ms"].items())) + ")",
+              flush=True)
+        for key, ms, n in r["top"]:
+            print(f"[profile] {name}   {ms:10.4f} ms x{n:<5d} {key}",
+                  flush=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="cosmoflow",
                     choices=list(ORACLE_BATCH))
+    ap.add_argument("--strategies", default=None,
+                    help=f"comma-separated, of {CNN_STRATEGIES}: profile "
+                         f"one rank of {RANKS} sharing the card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
-    batch_size = ORACLE_BATCH[args.arch]
-    ctx = ShardingCtx("cuda")
-    cfg = get_config(args.arch)
-    model = build_model(cfg, ctx, seed=0)
-    batch = Loader(data_config_for(cfg.model, batch_size), ctx.device
-                   ).batch_at(0)
-    opt = OptimizerConfig(name="sgd")
-    step, state = make_train_step(model, opt, ctx), train_state(model, opt)
-    for _ in range(2):                                     # warm-up
-        state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    report(f"{args.arch}_b{batch_size}_train_x{STEPS}", prof, host_s, None)
+    if args.strategies:
+        strategies = tuple(args.strategies.split(","))
+        for s in strategies:
+            if s not in CNN_STRATEGIES:
+                raise SystemExit(f"strategy {s!r}: one of {CNN_STRATEGIES}")
+        _report_sharded(args.arch, run_ranks(
+            _rank, RANKS, args.arch, strategies, backend="gloo",
+            device="cuda", model=MODEL_AXIS, timeout_s=900)[0])
+        return
+    step, state, batch = _warm_step(args.arch, ShardingCtx("cuda"))
+    prof, host_s = _traced(step, state, batch, torch.device("cuda"), True)
+    report(f"{args.arch}_b{ORACLE_BATCH[args.arch]}_train_x{STEPS}", prof,
+           host_s, None)
 
 
 if __name__ == "__main__":

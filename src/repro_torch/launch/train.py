@@ -1,31 +1,48 @@
-"""Single-device training entry point (counterpart of ``repro.launch.train``).
+"""Training entry point (counterpart of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \
         --steps 3 --batch 32
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch resnet50 --steps 3 --batch 32 --strategy ds --backend nccl
 
 Trains the paper's CNNs (``--arch`` resnet50, resnet152, vgg16 or
 cosmoflow): builds the (smoke or full) model with weights drawn from
 ``--seed``, the deterministic synthetic loader (images, or volumes for
 CosmoFlow) and the train step, and runs a plain loop on ``--device``
-(``cuda`` unless told otherwise; without CUDA it raises). Like the JAX
+(``cuda`` unless told otherwise; without CUDA it raises).
+
+Under ``torchrun`` (its WORLD_SIZE in the environment) the ranks form a
+(data, model) mesh (``--model`` ranks on the model axis; the reference's
+default split otherwise) over ``--backend`` (nccl: one rank per card; gloo:
+ranks sharing a card, or the CPU) and train under ``--strategy``, one of the
+CNN rule tables (data, spatial, filter, channel, df, ds): every rank draws
+the whole batch (``--batch`` is global) and keeps its block. Without a world
+it is the single-device trainer and ``--strategy`` is moot. Like the JAX
 trainer it trains without ``use_pallas``: the implicit-GEMM kernel has no
 backward yet. LM training, checkpointing, ``--strategy auto``,
-``--elastic`` and pipelines come with later slices.
+``--elastic`` and pipelines are not ported (ROADMAP queue 1).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..data.pipeline import DataConfig, Loader
 from ..models.cnn import CosmoFlowConfig, ResNetConfig, VGGConfig
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
+from ..parallel.strategies import make_rules
 from ..training.steps import make_train_step, train_state
-from .build import build_model
+from .build import build_model, shard_batch
+from .mesh import init_from_env, make_host_mesh
+
+# the rule tables the CNNs run under (the others raise)
+CNN_STRATEGIES = ("data", "spatial", "filter", "channel", "df", "ds")
 
 
 def data_config_for(mc, batch: int, seed: int = 0) -> DataConfig:
@@ -52,9 +69,35 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'; there is no fallback")
+    ap.add_argument("--strategy", default="df", choices=CNN_STRATEGIES,
+                    help="rules table under torchrun (moot on one device)")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="under torchrun: nccl (one rank per card; the "
+                         "default on cuda) or gloo (ranks sharing a card; "
+                         "the default on the cpu)")
+    ap.add_argument("--model-axis", type=int, default=None,
+                    help="ranks on the mesh's model axis")
     args = ap.parse_args(argv)
 
-    ctx = ShardingCtx(args.device)
+    world = "WORLD_SIZE" in os.environ
+    if world:
+        backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+        init_from_env(backend)
+        mesh = make_host_mesh(model=args.model_axis, backend=backend,
+                              device=args.device)
+        ctx = ShardingCtx(mesh.device, mesh=mesh,
+                          rules=make_rules(args.strategy))
+    else:
+        ctx = ShardingCtx(args.device)
+    try:
+        return _loop(args, ctx)
+    finally:
+        if world:
+            dist.destroy_process_group()
+
+
+def _loop(args, ctx: ShardingCtx) -> dict:
+    log = not ctx.sharded or ctx.mesh.rank == 0
     cfg = get_config(args.arch)
     mc = cfg.smoke_model if args.smoke else cfg.model
     model = build_model(cfg, ctx, smoke=args.smoke, seed=args.seed)
@@ -65,19 +108,21 @@ def main(argv=None) -> dict:
 
     losses, step_s = [], []
     t_start = time.perf_counter()
+    if ctx.sharded and log:
+        print(f"mesh {ctx.mesh} strategy {args.strategy}", flush=True)
     for s in range(args.steps):
-        batch = loader.batch_at(s)
+        batch = shard_batch(loader.batch_at(s), ctx)
         t0 = time.perf_counter()
         state, m = step(state, batch)
         if ctx.device.type == "cuda":
             torch.cuda.synchronize(ctx.device)
         step_s.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
-        if s % args.log_every == 0:
+        if s % args.log_every == 0 and log:
             print(f"step {s:5d} loss {losses[-1]:.4f} "
                   f"grad_norm {float(m['grad_norm']):.3f} "
                   f"({time.perf_counter() - t_start:.1f}s)", flush=True)
-    if losses:
+    if losses and log:
         print(f"done at step {state['step']}; loss {losses[0]:.4f} → "
               f"{losses[-1]:.4f}")
     return {"losses": losses, "step_s": step_s, "device": str(ctx.device)}

@@ -19,7 +19,11 @@ Both flatten the channels-last tensor, (H, W, C) order, before ``fc1``.
 
 Each model has ``forward(images, ctx, train)`` → logits,
 ``loss(logits, batch)`` → (loss, metrics) and ``loss_fn(batch, ctx, train)``,
-their composition.
+their composition. Across ranks (``ctx.sharded``) the images and targets
+are ``parallel.sharded.Sharded`` blocks, the layers follow the rules
+(``nn/layers.py``), ``ctx.constrain`` re-lays the activations out at the
+reference's points, and the loss is the mean over the whole batch, held by
+every rank.
 """
 from __future__ import annotations
 
@@ -29,9 +33,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import BatchNorm, Conv, Dense, global_avg_pool, max_pool
+from ..nn.layers import (BatchNorm, Conv, Dense, flatten, global_avg_pool,
+                         max_pool)
 from ..nn.module import ShardingCtx
+from ..parallel import collectives as C
 from ..parallel.halo import HaloConv
+from ..parallel.sharded import Sharded
+
+# where the reference constrains a CNN activation (batch, image, channels)
+ACT_2D = ("batch", "spatial", None, "conv_out")
+ACT_3D = ("batch", "spatial", None, None, "conv_out")
 
 
 @dataclass(frozen=True)
@@ -69,11 +80,12 @@ class Bottleneck(nn.Module):
 
     def forward(self, x, ctx: ShardingCtx, train: bool = True):
         y = torch.relu(self.bn1(self.conv1(x, ctx), ctx, train))
+        y = ctx.constrain(y, ACT_2D)
         y = torch.relu(self.bn2(self.conv2(y, ctx), ctx, train))
         y = self.bn3(self.conv3(y, ctx), ctx, train)
         sc = x if self.proj is None else \
             self.bn_proj(self.proj(x, ctx), ctx, train)
-        return torch.relu(y + sc)
+        return ctx.constrain(torch.relu(y + sc), ACT_2D)
 
 
 class ResNet(nn.Module):
@@ -94,7 +106,8 @@ class ResNet(nn.Module):
                 in_ch = mid * 4
         self.blocks = nn.ModuleList(blocks)
         self.head = Dense(512 * 4, c.n_classes, use_bias=True, dtype=c.dtype,
-                          device=device, generator=generator)
+                          device=device, generator=generator, in_axis="mlp",
+                          out_axis="vocab")
 
     def forward(self, x, ctx: ShardingCtx, train: bool = True):
         h = torch.relu(self.bn_stem(self.stem(x, ctx), ctx, train))
@@ -139,9 +152,12 @@ class VGG(nn.Module):
                 in_ch = v
         self.convs = nn.ModuleList(convs)
         feat = c.img // 32
-        self.fc1 = Dense(512 * feat * feat, 4096, use_bias=True, **kw)
-        self.fc2 = Dense(4096, 4096, use_bias=True, **kw)
-        self.fc3 = Dense(4096, c.n_classes, use_bias=True, **kw)
+        self.fc1 = Dense(512 * feat * feat, 4096, use_bias=True,
+                         in_axis="mlp", out_axis="embed", **kw)
+        self.fc2 = Dense(4096, 4096, use_bias=True, in_axis="embed",
+                         out_axis="mlp", **kw)
+        self.fc3 = Dense(4096, c.n_classes, use_bias=True, in_axis="mlp",
+                         out_axis="vocab", **kw)
 
     def forward(self, x, ctx: ShardingCtx, train: bool = True):
         h, convs = x, iter(self.convs)
@@ -149,8 +165,8 @@ class VGG(nn.Module):
             if v == "M":
                 h = max_pool(h, (2, 2), (2, 2), "VALID")
             else:
-                h = torch.relu(next(convs)(h, ctx))
-        h = h.reshape(h.shape[0], -1)
+                h = ctx.constrain(torch.relu(next(convs)(h, ctx)), ACT_2D)
+        h = flatten(h)
         h = torch.relu(self.fc1(h, ctx))
         h = torch.relu(self.fc2(h, ctx))
         return self.fc3(h, ctx)
@@ -190,22 +206,32 @@ class CosmoFlow(nn.Module):
             in_ch = out
         self.convs = nn.ModuleList(convs)
         edge = c.img // (2 ** c.n_conv)
-        self.fc1 = Dense(in_ch * edge ** 3, 128, use_bias=True, **kw)
-        self.fc2 = Dense(128, 64, use_bias=True, **kw)
-        self.out = Dense(64, c.n_targets, use_bias=True, **kw)
+        self.fc1 = Dense(in_ch * edge ** 3, 128, use_bias=True,
+                         in_axis="mlp", out_axis="embed", **kw)
+        self.fc2 = Dense(128, 64, use_bias=True, in_axis="embed",
+                         out_axis="mlp", **kw)
+        self.out = Dense(64, c.n_targets, use_bias=True, in_axis="mlp",
+                         out_axis=None, **kw)
 
     def forward(self, x, ctx: ShardingCtx, train: bool = True):
         h = x
         for conv in self.convs:
-            h = F.leaky_relu(conv(h, ctx), 0.01)
+            h = ctx.constrain(F.leaky_relu(conv(h, ctx), 0.01), ACT_3D)
             h = max_pool(h, (2, 2, 2), (2, 2, 2), "VALID")
-        h = h.reshape(h.shape[0], -1)
+        h = flatten(h)
         h = F.leaky_relu(self.fc1(h, ctx), 0.01)
         h = F.leaky_relu(self.fc2(h, ctx), 0.01)
         return self.out(h, ctx)
 
     def loss(self, pred, batch):
-        mse = ((pred - batch["targets"]) ** 2).mean()
+        tgt = batch["targets"]
+        if isinstance(pred, Sharded):
+            pred = pred.relayout((pred.place[0], ()))
+            tgt = tgt.relayout(pred.place)
+            mse = _batch_mean(((pred.local - tgt.local) ** 2).sum(), pred,
+                              pred.shape[0] * pred.shape[1])
+        else:
+            mse = ((pred - tgt) ** 2).mean()
         return mse, {"mse": mse}
 
     def loss_fn(self, batch, ctx: ShardingCtx, train: bool = True):
@@ -216,7 +242,25 @@ class CosmoFlow(nn.Module):
 
 
 def _softmax_xent(logits, labels):
+    if isinstance(logits, Sharded):
+        full = logits.relayout((logits.place[0], ()))
+        lab = labels.relayout(full.place[:1]).local
+        return _batch_mean(_xent_rows(full.local, lab).sum(), full,
+                           full.shape[0])
+    return _xent_rows(logits, labels).mean()
+
+
+def _xent_rows(logits, labels):
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.long()[:, None])[:, 0]
-    return (lse - picked).mean()
+    return lse - picked
+
+
+def _batch_mean(local_sum, like: Sharded, n: int):
+    """The mean of ``n`` terms from this rank's sum of its share (``like``
+    split on its batch dim only): all-reduced over the ranks that split the
+    batch, so every rank holds it."""
+    if like.place[0]:
+        local_sum = C.all_reduce(local_sum, like.mesh.group(like.place[0]))
+    return local_sum / n

@@ -9,6 +9,24 @@ the CNN stack and the LM build on these.
 Where PyTorch's defaults differ from XLA's, the port pads by hand: SAME
 padding is XLA's asymmetric split (``kernels.util.same_pads``), for the
 convolutions with zeros and for ``max_pool`` with −inf.
+
+Every parameter records the reference's logical axes (``p.axes``). Across
+ranks, the CNN layers take a ``parallel.sharded.Sharded`` activation and
+follow its placement and their parameters' (``shard_params``):
+
+* ``Conv``/``Dense``: a weight split on its out axis (filter-/column-
+  parallel) gives an output split on its channels; one split on its in axis
+  (channel-/row-parallel) takes its input split the same way and all-reduces
+  the partial sums. A leading spatial dim split over the mesh stays split
+  where no window crosses a block edge (a 1×1 or 2×2 window at its own
+  stride); otherwise it is gathered, computed whole, and re-split at the
+  model's next ``constrain``. (The stride-1 SAME sites run as
+  ``HaloConv``'s halo exchange instead.)
+* ``BatchNorm``: μ and E[x²] in fp32 over the whole batch and image, summed
+  over the ranks that split the reduced dims, as the reference's
+  unsharded-semantics ``jnp.mean`` does under GSPMD.
+* ``max_pool`` as a conv window; ``global_avg_pool`` sums over the ranks
+  that split the image; ``flatten`` gathers every dim but the batch.
 """
 from __future__ import annotations
 
@@ -20,7 +38,9 @@ from torch import nn
 
 from ..kernels.rmsnorm.ref import rmsnorm_ref
 from ..kernels.rmsnorm.rmsnorm import rmsnorm
-from ..kernels.util import conv_weight, same_pads
+from ..kernels.util import cdiv, conv_weight, same_pads
+from ..parallel import collectives as C
+from ..parallel.sharded import Sharded, param_block
 from .module import ShardingCtx, constant, fan_in_normal
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -56,20 +76,38 @@ def _pad(xc: torch.Tensor, pads: list[tuple[int, int]],
 
 
 class Dense(nn.Module):
-    """y = x @ w (+ b), w: (in_dim, out_dim)."""
+    """y = x @ w (+ b), w: (in_dim, out_dim); logical axes (in_axis,
+    out_axis) for column/row parallelism, as the reference's."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = False, *,
                  device: torch.device, generator: torch.Generator,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 in_axis: str | None = "embed", out_axis: str | None = "mlp"):
         super().__init__()
         self.use_bias = use_bias
-        self.w = fan_in_normal((in_dim, out_dim), (0,), generator, device, dtype)
+        self.w = fan_in_normal((in_dim, out_dim), (0,), generator, device,
+                               dtype, axes=(in_axis, out_axis))
         if use_bias:
-            self.b = constant((out_dim,), 0.0, device, dtype)
+            self.b = constant((out_dim,), 0.0, device, dtype,
+                              axes=(out_axis,))
 
     def forward(self, x, ctx: ShardingCtx):
+        if isinstance(x, Sharded):
+            return self._sharded(x)
         y = x @ self.w
         return y + self.b if self.use_bias else y
+
+    def _sharded(self, x: Sharded) -> Sharded:
+        mesh = x.mesh
+        w = param_block(self.w, mesh)
+        cin, cout = w.place
+        x = x.relayout((x.place[0], cin))
+        y = x.local @ w.local
+        if cin:
+            y = C.all_reduce(y, mesh.group(cin))
+        if self.use_bias:
+            y = y + param_block(self.b, mesh).relayout((cout,)).local
+        return Sharded(y, (x.shape[0], w.shape[1]), (x.place[0], cout), mesh)
 
 
 class Embedding(nn.Module):
@@ -81,7 +119,7 @@ class Embedding(nn.Module):
                  dtype: torch.dtype):
         super().__init__()
         self.table = fan_in_normal((vocab_size, features), (1,), generator,
-                                   device, dtype)
+                                   device, dtype, axes=("vocab", "embed"))
 
     def forward(self, ids, ctx: ShardingCtx):
         return self.table[ids]
@@ -96,7 +134,7 @@ class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-6, *, device: torch.device):
         super().__init__()
         self.eps = eps
-        self.scale = constant((dim,), 1.0, device)
+        self.scale = constant((dim,), 1.0, device, axes=("embed",))
 
     def forward(self, x, ctx: ShardingCtx):
         norm = rmsnorm if ctx.use_pallas else rmsnorm_ref
@@ -108,15 +146,19 @@ class BatchNorm(nn.Module):
 
     As in the reference (``repro.nn.layers.BatchNorm``): no running
     statistics (``train`` is accepted and ignored), fp32 math, variance as
-    E[x²] − μ², eps 1e-5, result cast back to x's dtype."""
+    E[x²] − μ², eps 1e-5, result cast back to x's dtype. On a ``Sharded``
+    input the sums run over the whole batch and image (all-reduced over the
+    ranks that split them); the channels stay as the input splits them."""
 
     def __init__(self, dim: int, eps: float = 1e-5, *, device: torch.device):
         super().__init__()
         self.eps = eps
-        self.scale = constant((dim,), 1.0, device)
-        self.bias = constant((dim,), 0.0, device)
+        self.scale = constant((dim,), 1.0, device, axes=("conv_out",))
+        self.bias = constant((dim,), 0.0, device, axes=("conv_out",))
 
     def forward(self, x, ctx: ShardingCtx, train: bool = True):
+        if isinstance(x, Sharded):
+            return self._sharded(x)
         xf = x.float()
         axes = tuple(range(x.dim() - 1))
         mu = xf.mean(axes)
@@ -124,10 +166,77 @@ class BatchNorm(nn.Module):
         y = (xf - mu) * torch.rsqrt(var + self.eps)
         return (y * self.scale.float() + self.bias.float()).to(x.dtype)
 
+    def _sharded(self, x: Sharded) -> Sharded:
+        mesh, xl = x.mesh, x.local
+        xf = xl.float()
+        axes = tuple(range(xl.dim() - 1))
+        split = _axes_of(mesh, x.place[:-1])
+        if split:
+            sums = torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
+            sums = C.all_reduce(sums, mesh.group(split))
+            n = 1
+            for d in x.shape[:-1]:
+                n *= d
+            mu, ex2 = sums[0] / n, sums[1] / n
+        else:                 # the whole batch and image here: as unsharded
+            mu, ex2 = xf.mean(axes), (xf * xf).mean(axes)
+        var = ex2 - mu * mu
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        ch = (x.place[-1],)
+        scale = param_block(self.scale, mesh).relayout(ch).local
+        bias = param_block(self.bias, mesh).relayout(ch).local
+        y = (y * scale.float() + bias.float()).to(xl.dtype)
+        return Sharded(y, x.shape, x.place, mesh)
+
+
+def conv_local(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
+               pads: Sequence[tuple[int, int]],
+               groups: int = 1) -> torch.Tensor:
+    """Channels-last N-D conv of one tensor with explicit zero pads (lo, hi)
+    per spatial dim."""
+    nd = w.dim() - 2
+    xc = _pad(_channels_first(x), list(pads))
+    strides = tuple(strides)
+    if set(w.shape[:nd]) == {1}:
+        # a strided 1×1 conv reads every s-th pixel: take those first and
+        # run it at stride 1. Same values and gradients, and it keeps off
+        # PyTorch 2.13's CPU backward for strided 1×1 convs, which
+        # corrupts the heap (abort or segfault in most runs of a loop).
+        xc = xc[(slice(None), slice(None)) + tuple(slice(None, None, s)
+                                                   for s in strides)]
+        strides = (1,) * nd
+    y = _CONV[nd](xc, conv_weight(w), stride=strides, groups=groups)
+    return _channels_last(y)
+
+
+def _out_extent(n: int, k: int, s: int, padding: str) -> int:
+    return cdiv(n, s) if padding == "SAME" else (n - k) // s + 1
+
+
+def _axes_of(mesh, place) -> tuple[str, ...]:
+    """The mesh axes that split any of the dims of ``place``, in mesh
+    order."""
+    used = {a for axes in place for a in axes}
+    return tuple(a for a in mesh.shape if a in used)
+
+
+def _window_place(x: Sharded, k: int, s: int) -> tuple:
+    """``x``'s placement for a window op (width ``k``, stride ``s`` on the
+    leading spatial dim): the leading spatial dim stays split where no
+    window crosses a block edge (k ≤ s and the block a whole number of
+    strides); it and every other spatial dim are whole otherwise."""
+    place = list(x.place)
+    if place[1] and not (k <= s and x.local.shape[1] % s == 0):
+        place[1] = ()
+    for d in range(2, x.dim() - 1):
+        place[d] = ()
+    return tuple(place)
+
 
 class Conv(nn.Module):
     """N-D convolution, channels-last: x[N, *spatial, C] → y[N, *spatial', F],
-    weight w[*K, C/groups, F] (HWIO)."""
+    weight w[*K, C/groups, F] (HWIO), logical axes (conv_k, None, ...,
+    conv_in, conv_out)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel: tuple[int, ...], strides: tuple[int, ...] | None = None,
@@ -143,37 +252,104 @@ class Conv(nn.Module):
         nd = len(self.kernel)
         self.w = fan_in_normal(
             self.kernel + (in_channels // feature_group_count, out_channels),
-            tuple(range(nd + 1)), generator, device, dtype)
+            tuple(range(nd + 1)), generator, device, dtype,
+            axes=("conv_k",) + (None,) * (nd - 1) + ("conv_in", "conv_out"))
         if use_bias:
-            self.b = constant((out_channels,), 0.0, device, dtype)
+            self.b = constant((out_channels,), 0.0, device, dtype,
+                              axes=("conv_out",))
 
     def forward(self, x, ctx: ShardingCtx):
+        if isinstance(x, Sharded):
+            return self._sharded(x, ctx)
         nd = len(self.kernel)
         strides = self.strides or (1,) * nd
         pads = _spatial_pads(x.shape[1:-1], self.kernel, strides, self.padding)
-        xc = _pad(_channels_first(x), pads)
-        if set(self.kernel) == {1}:
-            # a strided 1×1 conv reads every s-th pixel: take those first and
-            # run it at stride 1. Same values and gradients, and it keeps off
-            # PyTorch 2.13's CPU backward for strided 1×1 convs, which
-            # corrupts the heap (abort or segfault in most runs of a loop).
-            xc = xc[(slice(None), slice(None)) + tuple(slice(None, None, s)
-                                                       for s in strides)]
-            strides = (1,) * nd
-        y = _CONV[nd](xc, conv_weight(self.w), stride=strides,
-                      groups=self.feature_group_count)
-        y = _channels_last(y)
+        y = conv_local(x, self.w, strides, pads, self.feature_group_count)
         return y + self.b if self.use_bias else y
+
+    def _local(self, x: torch.Tensor, w: torch.Tensor, strides, pads,
+               ctx: ShardingCtx, whole: bool) -> torch.Tensor:
+        """The conv of one rank's block (``whole``: its spatial dims are the
+        whole image's); ``HaloConv`` runs it on the kernel."""
+        return conv_local(x, w, strides, pads, self.feature_group_count)
+
+    def _sharded(self, x: Sharded, ctx: ShardingCtx) -> Sharded:
+        if self.feature_group_count != 1:
+            raise NotImplementedError("a grouped conv across ranks is not "
+                                      "ported (no CNN of the paper has one)")
+        mesh, nd = x.mesh, len(self.kernel)
+        strides = self.strides or (1,) * nd
+        w = param_block(self.w, mesh)
+        w = w.relayout(((),) * nd + w.place[nd:])
+        cin, cout = w.place[nd], w.place[nd + 1]
+        place = _window_place(x, self.kernel[0], strides[0])
+        x = x.relayout(place[:-1] + (cin,))
+        pads = _spatial_pads(x.shape[1:-1], self.kernel, strides, self.padding)
+        if place[1]:          # no window crosses a block edge: no padding
+            pads[0] = (0, 0)
+        y = self._local(x.local, w.local, strides, pads, ctx,
+                        whole=not place[1])
+        if cin:
+            y = C.all_reduce(y, mesh.group(cin))
+        if self.use_bias:
+            y = y + param_block(self.b, mesh).relayout((cout,)).local
+        shape = (x.shape[0],) + tuple(
+            _out_extent(n, k, s, self.padding)
+            for n, k, s in zip(x.shape[1:-1], self.kernel, strides)) + (
+            w.shape[-1],)
+        return Sharded(y, shape, place[:-1] + (cout,), mesh)
 
 
 def max_pool(x, window: tuple[int, ...], strides: tuple[int, ...] | None = None,
              padding: str = "SAME"):
     """Max over windows of a channels-last tensor; SAME pads with −inf."""
     strides = strides or window
+    if isinstance(x, Sharded):
+        place = _window_place(x, window[0], strides[0])
+        x = x.relayout(place)
+        pads = _spatial_pads(x.shape[1:-1], window, strides, padding)
+        if place[1]:
+            pads[0] = (0, 0)
+        y = _max_pool_local(x.local, window, strides, pads)
+        shape = (x.shape[0],) + tuple(
+            _out_extent(n, k, s, padding)
+            for n, k, s in zip(x.shape[1:-1], window, strides)) + (
+            x.shape[-1],)
+        return Sharded(y, shape, place, x.mesh)
     pads = _spatial_pads(x.shape[1:-1], window, strides, padding)
+    return _max_pool_local(x, window, strides, pads)
+
+
+def _max_pool_local(x, window, strides, pads):
     xc = _pad(_channels_first(x), pads, value=float("-inf"))
     return _channels_last(_MAX_POOL[len(window)](xc, window, strides))
 
 
 def global_avg_pool(x):
+    """Mean over the spatial dims; on a ``Sharded`` input the sums are
+    all-reduced over the ranks that split the image."""
+    if isinstance(x, Sharded):
+        mesh, dims = x.mesh, tuple(range(1, x.dim() - 1))
+        s = x.local.sum(dim=dims)
+        split = _axes_of(mesh, x.place[1:-1])
+        if split:
+            s = C.all_reduce(s, mesh.group(split))
+        n = 1
+        for d in x.shape[1:-1]:
+            n *= d
+        return Sharded(s / n, (x.shape[0], x.shape[-1]),
+                       (x.place[0], x.place[-1]), mesh)
     return x.mean(dim=tuple(range(1, x.dim() - 1)))
+
+
+def flatten(x):
+    """(B, ...) → (B, prod(...)) in row-major order, as ``reshape`` (on a
+    ``Sharded`` input every dim but the batch is gathered first)."""
+    if isinstance(x, Sharded):
+        x = x.relayout((x.place[0],) + ((),) * (x.dim() - 1))
+        n = 1
+        for d in x.shape[1:]:
+            n *= d
+        return Sharded(x.local.reshape(x.local.shape[0], n), (x.shape[0], n),
+                       (x.place[0], ()), x.mesh)
+    return x.reshape(x.shape[0], -1)

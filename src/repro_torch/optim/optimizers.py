@@ -1,18 +1,23 @@
 """Optimizers: SGD(+momentum) and AdamW (counterpart of
-``repro.optim.optimizers``; ZeRO-1 state sharding comes with the parallel
-slice).
+``repro.optim.optimizers``; ZeRO-1 state sharding is not ported yet, ROADMAP
+queue 1).
 
 State is a dict of fp32 tensors keyed by parameter name (``m``/``v`` for
 AdamW, ``mom`` for SGD). Unlike the JAX package's pure update, ``apply_update``
 writes the new parameters and state in place: that keeps one copy of each
 instead of two. The arithmetic is the reference's: clip to a global norm of
-``grad_clip`` first, bias correction with ``count = step + 1``.
+``grad_clip`` first, bias correction with ``count = step + 1``. Across ranks
+the norm is over the whole model (``sharded_global_norm``): each parameter's
+squares summed over its blocks, and a replicated parameter counted once.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from ..parallel import collectives as C
+from ..parallel.sharded import replicas
 
 
 @dataclass(frozen=True)
@@ -46,18 +51,40 @@ def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
                         for g in grads.values()]).sum().sqrt()
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
-    """fp32 grads scaled to a global norm of at most ``max_norm``."""
-    norm = global_norm(grads)
+def sharded_global_norm(grads: dict[str, torch.Tensor],
+                        params: dict[str, torch.Tensor], mesh) -> torch.Tensor:
+    """The whole model's gradient norm from this rank's blocks: each block's
+    squares divided by the number of ranks that hold a copy of it, summed
+    over the world (every rank gets the same value)."""
+    sq = torch.stack([g.float().square().sum()
+                      / _copies(params[k], mesh) for k, g in grads.items()])
+    return C.all_reduce_sum(sq.sum(), mesh.group(tuple(mesh.shape))).sqrt()
+
+
+def _copies(p: torch.Tensor, mesh) -> int:
+    n = 1
+    for a in replicas(p, mesh):
+        n *= mesh.shape[a]
+    return n
+
+
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float,
+                        norm: torch.Tensor | None = None):
+    """fp32 grads scaled to a global norm of at most ``max_norm`` (``norm``:
+    the global norm where the caller computed it across ranks)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: g.float() * scale for k, g in grads.items()}, norm
 
 
 @torch.no_grad()
 def apply_update(opt: OptimizerConfig, params: dict[str, torch.Tensor],
-                 grads: dict[str, torch.Tensor], state: dict, step: int) -> dict:
-    """Update ``params`` and ``state`` in place; returns the metrics."""
-    grads, gnorm = clip_by_global_norm(grads, opt.grad_clip)
+                 grads: dict[str, torch.Tensor], state: dict, step: int,
+                 norm: torch.Tensor | None = None) -> dict:
+    """Update ``params`` and ``state`` in place; returns the metrics.
+    ``norm``: the global gradient norm, where the caller computed it across
+    ranks (``sharded_global_norm``)."""
+    grads, gnorm = clip_by_global_norm(grads, opt.grad_clip, norm)
     count = float(step) + 1.0
 
     if opt.name == "adamw":

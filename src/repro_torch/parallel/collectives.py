@@ -1,0 +1,133 @@
+"""Collectives over a mesh group that autograd differentiates (port-only: in
+the reference GSPMD inserts them).
+
+One convention holds everywhere, so no call site chooses a backward: the
+true gradient of a value is the SUM of the local gradients of all its
+copies. Under it each collective's backward is its exact adjoint:
+
+=================  ===========================  ==========================
+collective         forward                      backward (its adjoint)
+=================  ===========================  ==========================
+``all_gather``     blocks → the whole, on all   reduce-scatter (sum)
+``split``          the whole → this rank's      zero-pad into the whole
+                   block (no communication)
+``all_reduce``     partial sums → their sum     all-reduce (sum)
+=================  ===========================  ==========================
+
+and the halo exchange's backward sends the received rows' gradients back to
+their owners (``parallel/halo.py``). A scalar loss that all p ranks hold
+seeds its backward with 1/p on each (``training.steps``), and a parameter
+replicated over a group has its gradient summed over that group after the
+backward. By the chain rule on the ranks' stacked computation, every rank
+then holds the true gradient of its own block, whatever is computed
+redundantly or in parts in between (``tests/test_torch_parallel_*.py`` hold
+the gradients against the unsharded step's). The Megatron pair (identity
+backward for an all-reduce followed by redundant compute, a slice for an
+all-gather so followed) moves fewer bytes but needs that choice at every
+site; a wrong one scales gradients by p.
+
+Transport: under gloo, CUDA tensors pass ``all_reduce`` as they are (gloo
+takes them there) and cross every other collective through host buffers
+(``Group.stage``). The groups come from ``launch.mesh.Mesh.group``. Each
+transfer is a ``record_function`` span named ``comm.<collective>``, which
+``launch.profile_train --strategies`` sums.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch.profiler import record_function
+
+
+def _host(x: torch.Tensor, stage: bool) -> torch.Tensor:
+    return x.cpu().contiguous() if stage else x.contiguous()
+
+
+def gather_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of all ranks of ``group`` along ``dim``, in group order
+    (no autograd)."""
+    with record_function("comm.all_gather"):
+        src = _host(x, group.stage)
+        parts = [torch.empty_like(src) for _ in range(group.size)]
+        dist.all_gather(parts, src, group=group.pg)
+        return torch.cat(parts, dim).to(x.device)
+
+
+def reduce_scatter_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``group`` (no
+    autograd)."""
+    with record_function("comm.reduce_scatter"):
+        src = _host(x, group.stage)
+        parts = [c.contiguous() for c in src.chunk(group.size, dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=group.pg)
+        return out.to(x.device)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` in a new tensor (no autograd)."""
+    with record_function("comm.all_reduce"):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group.pg)
+        return y
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group.pg)
+    return y
+
+
+def block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (no autograd)."""
+    if x.shape[dim] % group.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {group.size} blocks")
+    return x.chunk(group.size, dim)[group.index].contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_blocks(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_blocks(g, ctx.dim, ctx.group), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.shape = dim, group, x.shape
+        return block(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        out.chunk(ctx.group.size, ctx.dim)[ctx.group.index].copy_(g)
+        return out, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x if group.size == 1 else _AllGather.apply(x, dim, group)
+
+
+def split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x if group.size == 1 else _Split.apply(x, dim, group)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group.size == 1 else _AllReduce.apply(x, group)

@@ -7,6 +7,16 @@ The train state is ``{"params": {name: Parameter}, "opt": {...}, "step": int}``
 the model's own, so a step updates the model in place. Gradient accumulation
 splits the batch into ``accum`` microbatches, sums their fp32 gradients and
 divides by ``accum``, as the reference's ``lax.scan`` does.
+
+Across ranks (``ctx.sharded``) the batch holds ``Sharded`` blocks
+(``launch.build.shard_batch``) and the parameters this rank's blocks
+(``parallel.sharded.shard_params``). The loss, which all p ranks hold,
+seeds its backward with 1/p on each; a parameter replicated over some mesh
+axes then has its gradient summed over them (one flat all-reduce per set of
+axes), and the clipping norm is the whole model's (see
+``parallel/collectives.py`` for why that gives every rank the true
+gradient of its blocks). Microbatch i is rows [i·B/accum, (i+1)·B/accum) of
+the whole batch, as in the reference, gathered and split anew.
 """
 from __future__ import annotations
 
@@ -15,7 +25,10 @@ from typing import Callable
 import torch
 
 from ..nn.module import ShardingCtx
-from ..optim.optimizers import OptimizerConfig, apply_update, init_state
+from ..optim.optimizers import (OptimizerConfig, apply_update, init_state,
+                                sharded_global_norm)
+from ..parallel import collectives as C
+from ..parallel.sharded import Sharded, replicas
 
 
 def train_state(model: torch.nn.Module, opt: OptimizerConfig) -> dict:
@@ -27,9 +40,12 @@ def make_train_step(model, opt: OptimizerConfig, ctx: ShardingCtx,
                     accum: int = 1, **fwd_kw) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics)."""
 
+    seed = 1.0 / ctx.mesh.size if ctx.sharded else 1.0
+
     def grads_of(params, batch):
         loss, metrics = model.loss_fn(batch, ctx, **fwd_kw)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    torch.full_like(loss, seed))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(params, grads))
 
@@ -47,7 +63,7 @@ def make_train_step(model, opt: OptimizerConfig, ctx: ShardingCtx,
                                     device=p.device) for k, p in params.items()}
             losses, ms = [], []
             for i in range(accum):
-                l, m, g = grads_of(params, {k: v[i * mb:(i + 1) * mb]
+                l, m, g = grads_of(params, {k: _rows(v, i * mb, mb)
                                             for k, v in batch.items()})
                 for k in grads:
                     grads[k] += g[k].float()
@@ -56,11 +72,46 @@ def make_train_step(model, opt: OptimizerConfig, ctx: ShardingCtx,
             grads = {k: g / accum for k, g in grads.items()}
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        om = apply_update(opt, params, grads, state["opt"], state["step"])
+        norm = None
+        if ctx.sharded:
+            grads = sum_replicas(grads, params, ctx.mesh)
+            norm = sharded_global_norm(grads, params, ctx.mesh)
+        om = apply_update(opt, params, grads, state["opt"], state["step"],
+                          norm)
         state["step"] += 1
         return state, dict(metrics, loss=loss, **om)
 
     return train_step
+
+
+def _rows(v, start: int, n: int):
+    """Rows [start, start + n) of a batch leaf (a ``Sharded`` one gathered
+    whole on its batch dim, cut, and split again as it was)."""
+    if not isinstance(v, Sharded):
+        return v[start:start + n]
+    whole = v.relayout(((),) + v.place[1:])
+    part = Sharded(whole.local[start:start + n], (n,) + v.shape[1:],
+                   whole.place, v.mesh)
+    return part.relayout(v.place)
+
+
+@torch.no_grad()
+def sum_replicas(grads: dict, params: dict, mesh) -> dict:
+    """Each gradient summed over the mesh axes its parameter is replicated
+    on: one flat all-reduce per set of axes (and dtype)."""
+    by_axes: dict[tuple, list[str]] = {}
+    for k, p in params.items():
+        by_axes.setdefault((replicas(p, mesh), grads[k].dtype), []).append(k)
+    out = dict(grads)
+    for (axes, _), keys in by_axes.items():
+        if not axes:
+            continue
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        flat = C.all_reduce_sum(flat, mesh.group(axes))
+        for k, part in zip(keys, flat.split([grads[k].numel()
+                                             for k in keys])):
+            out[k] = part.view_as(grads[k])
+    return out
 
 
 def make_eval_step(model, ctx: ShardingCtx, **fwd_kw) -> Callable:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
-without one. They import no jax, so they run where only PyTorch is
+without one. The parallel ones start ranks that share the card over gloo
+(``repro_torch.launch.spawn``). They import no jax, so they run where only PyTorch is
 installed (``--noconftest``: ``tests/conftest.py`` imports jax):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -403,3 +404,86 @@ def test_validate_on_the_card_returns_finite_points(cuda, arch):
         assert (pt.strategy, pt.p) == ("data", 1)
         for t in (pt.measured_s, pt.projected_s, pt.projected_serial_s):
             assert math.isfinite(t) and t > 0
+
+
+def _sharded_haloconv_rank(mesh):
+    """A 3×3 HaloConv under the ds rules on a (1, 2) mesh sharing the card:
+    the kernel path (pad_h=False on the interior and boundary tiles) and
+    the plain path, gathered whole; the kernel's launches."""
+    from repro_torch.parallel.halo import HaloConv
+    from repro_torch.parallel.sharded import Sharded, placement
+    from repro_torch.parallel.strategies import make_rules
+    dev = mesh.device
+    hc = HaloConv(64, 64, (3, 3), use_bias=True, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    x, _ = _conv_inputs(2, 56, 64, 64, 3, torch.float32, "cpu")
+    xs = Sharded.of(x.to(dev), placement(mesh, (None, "model", None, None)),
+                    mesh)
+    out = {}
+    for pl in (True, False):
+        ctx = ShardingCtx(dev, use_pallas=pl, mesh=mesh,
+                          rules=make_rules("ds"))
+        before = conv2d_gemm.launches
+        with torch.no_grad():
+            out[pl] = hc(xs, ctx).full().cpu()
+        torch.cuda.synchronize(dev)
+        out[f"launches_{pl}"] = conv2d_gemm.launches - before
+    return out
+
+
+@pytest.mark.cuda
+def test_sharded_haloconv_on_the_kernel_matches_the_plain_path(cuda):
+    """Two ranks on the card over gloo: each runs conv2d_gemm three times
+    (interior, top and bottom tiles through the pad_h=False entry) and the
+    gathered output agrees with the plain path at the conv bar (1e-4)."""
+    from repro_torch.launch.spawn import run_ranks
+    res = run_ranks(_sharded_haloconv_rank, 2, backend="gloo",
+                    device="cuda", model=2, timeout_s=300)
+    for r in res:
+        assert r["launches_True"] == 3 and r["launches_False"] == 0
+        torch.testing.assert_close(r[True], r[False], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(res[0][True], res[1][True], rtol=0, atol=0)
+
+
+def _staged_collectives_rank(mesh):
+    """The collectives and the halo exchange on CUDA tensors over gloo
+    (all-gather, reduce-scatter and send/recv through host buffers,
+    all-reduce on the card's tensor as gloo takes it), forward and
+    backward, beside the same on CPU tensors."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.halo import halo_exchange
+    dev, g = mesh.device, mesh.group(("data", "model"))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        gen = torch.Generator().manual_seed(mesh.rank)
+        x = torch.randn((2, 6, 5, 3), generator=gen).to(where)
+        x.requires_grad_()
+        r = torch.randn((2, 6 * g.size, 5, 3), generator=gen).to(where)
+        y = C.all_gather(x, 1, g)
+        h = halo_exchange(x, (1, 2), g)
+        s = C.all_reduce(x * 1.0, g)
+        loss = (y * r).sum() + (h * h).sum() + s.sum()
+        (gx,) = torch.autograd.grad(loss, (x,))
+        m = C.all_reduce_max(x.detach().amax().reshape(1), g)
+        rs = C.reduce_scatter_blocks(r, 1, g)
+        out[where.type] = [t.detach().cpu() for t in (y, h, s, gx, m, rs)]
+    return out
+
+
+@pytest.mark.cuda
+def test_host_staged_collectives_on_cuda_tensors(cuda):
+    """Four ranks on the card: every collective and the halo exchange give
+    on CUDA tensors, forward and backward, what they give on CPU tensors:
+    the moved rows and the max bitwise, the sums (gloo's all-reduce of a
+    CUDA tensor may add in another order) within 1e-5 of their scale."""
+    from repro_torch.launch.spawn import run_ranks
+    res = run_ranks(_staged_collectives_rank, 4, backend="gloo",
+                    device="cuda", model=2, timeout_s=300)
+    names = ("all_gather", "halo", "all_reduce", "grad", "max",
+             "reduce_scatter")
+    for r in res:
+        for name, a, b in zip(names, r["cuda"], r["cpu"]):
+            tol = 0.0 if name in ("all_gather", "halo", "max") else \
+                1e-5 * float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=lambda m:
+                                       f"{name}: {m}")
