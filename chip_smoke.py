@@ -67,6 +67,24 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              Fig. 3 at p = 4 (calibrate_cluster on the mesh, then
              validate; reported, gated on finiteness only) and the
              phase's wall time.
+  5d. pipeline  the paper's layer strategy (§3.4) on the same spawn: the
+             PAR_RANKS ranks as the stages of a (1, PAR_RANKS) regrid of
+             the [parallel] world. 2 SGD steps of each PIPE_TRAIN case
+             (ResNet-50 at batch 32, S = 8, under gpipe, one_f_one_b and
+             interleaved with v = 2; VGG16 at batch 32, S = 8, under
+             gpipe; CosmoFlow at batch 8, S = 4, under gpipe and
+             one_f_one_b), the first loss, the first step's gradient norm
+             and the second loss against two single-process steps at the
+             microbatch size (make_train_step(accum=S); CosmoFlow, which
+             has no BatchNorm, the plain step) within PAR_LOSS_TOL and
+             PAR_STEP_TOL, with pipeline_segments, the cuts, the step ms
+             and each rank's peak memory; measure_schedule_bubble for
+             ResNet-50 at microbatch 2, S 4 and 8, under each schedule,
+             beside the oracle's schedule_winner at p = 4 (reported, not
+             gated); Fig. 3's pipeline row at p = 4 for the PAR_ORACLE
+             models under the cluster [parallel] calibrated, and the mean
+             accuracy at p = 4 with and without it (gated on finiteness
+             only).
   6. serve   Qwen1.5-4B at full width in bf16, random weights from seed 0:
              a prompt pass over 4 prompts of 2048 tokens, then 32 greedy
              decode steps into a cache of 2080 positions, with use_pallas:
@@ -240,6 +258,27 @@ PAR_TRAIN = (("resnet50", 32, ("data", "filter", "channel", "ds", "df")),
 # O(1).
 PAR_LOSS_TOL = 1e-5
 PAR_STEP_TOL = 1e-3
+# The pipeline phase: the same ranks as the stages of a (1, PAR_RANKS) mesh
+# (Mesh.regrid over the [parallel] world). Training, 2 SGD steps each:
+# (arch, global batch, requested S, ((schedule, interleaved v), ...)).
+# CosmoFlow's 6 blocks hold no v = 2 (8 chunks on 4 ranks), as the
+# reference's own check says. Each case is held against two single-process
+# steps at the bars above: the same fp32 function at the microbatch size
+# (ResNet-50's and VGG16's BatchNorm-free or per-microbatch statistics:
+# make_train_step(accum=S) for ResNet-50, whose BatchNorm takes per-
+# microbatch statistics under the pipe, and VGG16; the plain step for
+# CosmoFlow), with the loss summed over the microbatches on the last stage
+# and the gradients accumulated in the schedule's order (the CPU tests
+# read ≤ 1.3e-7 in the loss and 1.7e-6 in the update). BatchNorm over the
+# whole batch instead moves the smoke ResNet's loss by 19 % (the CPU
+# tests), and a gradient lost at a stage boundary moves the norm by O(1).
+PIPE_TRAIN = (("resnet50", 32, 8, (("gpipe", 1), ("one_f_one_b", 1),
+                                   ("interleaved", 2))),
+              ("vgg16", 32, 8, (("gpipe", 1),)),
+              ("cosmoflow", 8, 4, (("gpipe", 1), ("one_f_one_b", 1))))
+# the bubble fit (measure_schedule_bubble): (arch, microbatch, S_small,
+# S_large), every schedule, interleaved at v = 2; reported, not gated
+PIPE_BUBBLE = ("resnet50", 2, 4, 8)
 # Fig. 3 at p = 4: (arch, global batch, oracle strategies); "spatial" is
 # measured under the ds rules, as the reference does. At ResNet-50's batch
 # 32 its points took 113 s on an H100 (filter and channel move whole
@@ -1308,15 +1347,88 @@ def _parallel_rank(mesh, hbm_bw: float):
         out["oracle"][arch] = (batch_size, pts, time.perf_counter() - t0)
         del model, batch
         torch.cuda.empty_cache()
-    return out if mesh.rank == 0 else {"launches": out["launches"]}
+    out["pipeline"] = _pipeline_rank(mesh, cluster)
+    if mesh.rank == 0:
+        return out
+    return {"launches": out["launches"],
+            "pipeline": {"peaks": out["pipeline"]["peaks"]}}
 
 
-def _two_sgd_steps(cfg, ctx, batch) -> tuple:
-    """Two SGD steps of a model from seed 0: (first loss, the first step's
-    gradient norm before clipping, second loss)."""
+def _pipeline_rank(mesh22, cluster) -> dict:
+    """One rank of the pipeline phase, on the [parallel] spawn: the ranks
+    as the stages of a (1, PAR_RANKS) regrid of its mesh. Returns the
+    training cases' losses, norms, segments, cuts, step ms and this rank's
+    peak memory per case, the bubble fits and Fig. 3's pipeline row."""
+    from repro_torch.core.validation import measure_schedule_bubble
+    from repro_torch.parallel.schedules import (SCHEDULE_NAMES,
+                                                make_pipeline_train_step)
+    t_phase = time.perf_counter()
+    dev = mesh22.device
+    ctx = ShardingCtx(dev, mesh=mesh22.regrid(1, PAR_RANKS))
+    ctx22, whole = ShardingCtx(dev, mesh=mesh22), ShardingCtx(dev)
+    out = {"train": {}, "peaks": {}, "bubble": {}, "fig3": {}}
+    for arch, batch_size, segments, schedules in PIPE_TRAIN:
+        cfg = get_config(arch)
+        batch = Loader(train.data_config_for(cfg.model, batch_size, seed=0),
+                       dev).batch_at(0)
+        for schedule, v in schedules:
+            model = build_model(cfg, whole, seed=0)
+            opt = OptimizerConfig(name="sgd", lr=3e-3)
+            step = make_pipeline_train_step(
+                model, opt, ctx, segments=segments, schedule=schedule,
+                virtual_stages=v)
+            state = train_state(model, opt)
+            torch.cuda.reset_peak_memory_stats(dev)
+            losses, norms, ms = [], [], []
+            for _ in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out["train"][arch, schedule] = (losses, norms, ms,
+                                            m["pipeline_segments"],
+                                            step.bounds)
+            out["peaks"][arch, schedule] = torch.cuda.max_memory_allocated(
+                dev)
+            del model, state, step
+            torch.cuda.empty_cache()
+        del batch
+    arch, mb, s_small, s_large = PIPE_BUBBLE
+    cfg = get_config(arch)
+    model = build_model(cfg, whole, seed=0)
+    for schedule in SCHEDULE_NAMES:
+        out["bubble"][schedule] = measure_schedule_bubble(
+            model, lambda n: Loader(train.data_config_for(
+                cfg.model, n, seed=0), dev).batch_at(0), ctx22,
+            schedule=schedule, virtual_stages=2, S_small=s_small,
+            S_large=s_large, microbatch=mb)
+    del model
+    torch.cuda.empty_cache()
+    for arch, batch_size, _ in PAR_ORACLE:
+        cfg = get_config(arch)
+        model = build_model(cfg, whole, seed=0)
+        batch = Loader(train.data_config_for(cfg.model, batch_size, seed=0),
+                       dev).batch_at(0)
+        fps = float(sum(st.flops_fwd for st in stats_for(cfg.model)))
+        out["fig3"][arch] = (batch_size, validate(
+            model, cfg.model, batch, ctx22, ["pipeline"],
+            flops_per_sample=fps, B=batch_size, cluster=cluster))
+        del model, batch
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _two_sgd_steps(cfg, ctx, batch, accum: int = 1) -> tuple:
+    """Two SGD steps of a model from seed 0 (``accum`` microbatches a
+    step): (first loss, the first step's gradient norm before clipping,
+    second loss)."""
     model = build_model(cfg, ctx, seed=0)
     opt = OptimizerConfig(name="sgd", lr=3e-3)
-    step, state = make_train_step(model, opt, ctx), train_state(model, opt)
+    step = make_train_step(model, opt, ctx, accum=accum)
+    state = train_state(model, opt)
     state, m0 = step(state, batch)
     state, m1 = step(state, batch)
     return float(m0["loss"]), float(m0["grad_norm"]), float(m1["loss"])
@@ -1359,6 +1471,8 @@ def phase_parallel(dev, hbm_bw: float) -> int:
         del batch
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t_phase
+    refs["pipe"] = _pipeline_refs(dev)
+    t_pipe_ref = time.perf_counter() - t_phase - t_ref
     from repro_torch.launch.spawn import run_ranks
     results = run_ranks(_parallel_rank, PAR_RANKS, hbm_bw, backend="gloo",
                         device="cuda", model=PAR_MODEL, timeout_s=900)
@@ -1442,9 +1556,102 @@ def phase_parallel(dev, hbm_bw: float) -> int:
           f"{statistics.mean(pt.accuracy for pt in rows) * 100:.4g}% "
           f"(serial-comm {statistics.mean(pt.accuracy_serial for pt in rows) * 100:.4g}%; "
           f"{note}; reported, not gated)", flush=True)
-    print(f"[parallel] phase wall time {time.perf_counter() - t_phase:.4g} s",
-          flush=True)
+    t_pipe = t_pipe_ref + r0["pipeline"]["seconds"]
+    print(f"[parallel] phase wall time "
+          f"{time.perf_counter() - t_phase - t_pipe:.4g} s (the pipeline "
+          f"phase's part excluded)", flush=True)
+    _report_pipeline(results, refs["pipe"], rows, note, t_pipe, cluster)
     return total
+
+
+def _pipeline_refs(dev) -> dict:
+    """Two single-process SGD steps per PIPE_TRAIN model at the step's
+    microbatch size (CosmoFlow: the plain step), before the spawn."""
+    from repro_torch.parallel.schedules import clip_segments
+    refs, ctx = {}, ShardingCtx(dev)
+    for arch, batch_size, segments, _ in PIPE_TRAIN:
+        cfg = get_config(arch)
+        batch = Loader(train.data_config_for(cfg.model, batch_size, seed=0),
+                       dev).batch_at(0)
+        S = clip_segments(batch_size, segments)
+        accum = 1 if arch == "cosmoflow" else S
+        refs[arch] = (S, accum, _two_sgd_steps(cfg, ctx, batch, accum))
+        del batch
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _report_pipeline(results, refs, rows, note, seconds, cluster):
+    """Prints and gates the pipeline phase (see the module docstring, 5d)."""
+    from repro_torch.core.validation import schedule_winner
+    r0 = results[0]["pipeline"]
+    print(f"[pipeline] mesh (data=1, model={PAR_RANKS}): the [parallel] "
+          f"world regridded, every rank a stage; {note}", flush=True)
+    for (arch, schedule), (losses, norms, ms, S, bounds) in r0[
+            "train"].items():
+        S_want, accum, want = refs[arch]
+        got = (losses[0], norms[0], losses[1])
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        bars = (PAR_LOSS_TOL, PAR_STEP_TOL, PAR_STEP_TOL)
+        peaks = [r["pipeline"]["peaks"][arch, schedule] for r in results]
+        batch_size = next(b for a, b, _, _ in PIPE_TRAIN if a == arch)
+        print(f"[pipeline] train {arch} {schedule} batch={batch_size} "
+              f"pipeline_segments={S} cuts={bounds} losses="
+              f"{','.join(f'{v:.7g}' for v in losses)} grad_norm_step1="
+              f"{norms[0]:.7g} single_process(accum={accum}): loss1="
+              f"{want[0]:.7g} grad_norm1={want[1]:.7g} loss2={want[2]:.7g} "
+              f"rel_diff: loss1={rel[0]:.3g} (bar {bars[0]}) grad_norm1="
+              f"{rel[1]:.3g} loss2={rel[2]:.3g} (bar {bars[1]}) step_ms="
+              f"{','.join(f'{v:.4g}' for v in ms)} "
+              f"max_memory_allocated_per_rank={peaks}", flush=True)
+        if S != S_want or not all(math.isfinite(v) for v in got) or any(
+                r > bar for r, bar in zip(rel, bars)):
+            fail(f"[pipeline] {arch} {schedule}: S={S} (want {S_want}), "
+                 f"(loss1, grad_norm1, loss2) {got} against the "
+                 f"single-process {want}: {rel} relative (bars {bars})")
+    arch, mb, s_small, s_large = PIPE_BUBBLE
+    cfg = get_config(arch)
+    winner = schedule_winner(
+        stats_for(cfg.model), TimeModel(cluster.system),
+        OracleConfig(B=s_large * mb, D=s_large * mb, segments=s_large,
+                     virtual_stages=2, **cluster.oracle_kw()), PAR_RANKS)
+    bubbles = r0["bubble"]
+    for schedule, b in bubbles.items():
+        print(f"[pipeline] bubble {arch} microbatch={mb} {schedule}"
+              + (" v=2" if schedule == "interleaved" else "")
+              + f": t(S={s_small})={b['t_small_s'] * 1e3:.6g} ms "
+              f"t(S={s_large})={b['t_large_s'] * 1e3:.6g} ms "
+              f"per_microbatch={b['per_microbatch_s'] * 1e3:.6g} ms "
+              f"intercept={b['intercept_s'] * 1e3:.6g} ms "
+              f"bubble={b['bubble_s'] * 1e3:.6g} ms "
+              f"fraction={b['bubble_fraction']:.4g}", flush=True)
+    measured = min(bubbles, key=lambda s: bubbles[s]["t_large_s"])
+    print(f"[pipeline] schedule winner at p={PAR_RANKS}, batch "
+          f"{s_large * mb}, S={s_large}: measured (least t(S={s_large})) "
+          f"{measured}, oracle {winner} (reported, not gated)", flush=True)
+    pipe_rows = []
+    for arch, (batch_size, pts) in r0["fig3"].items():
+        for line in accuracy_report(pts).splitlines()[:-1]:
+            print(f"[pipeline] fig3 p={PAR_RANKS} {arch} batch={batch_size} "
+                  f"{line}", flush=True)
+        if [pt.strategy for pt in pts] != ["pipeline"]:
+            fail(f"[pipeline] {arch}: validate gave {pts}, not the pipeline "
+                 f"row")
+        for pt in pts:
+            if not all(math.isfinite(t) and t > 0 for t in (
+                    pt.measured_s, pt.projected_s, pt.projected_serial_s)):
+                fail(f"[pipeline] {arch}: measured {pt.measured_s} s, "
+                     f"projected {pt.projected_s} s")
+        pipe_rows += pts
+    both = rows + pipe_rows
+    serial = statistics.mean(pt.accuracy_serial for pt in both)
+    print(f"[pipeline] mean accuracy at p={PAR_RANKS}: without the pipeline "
+          f"row {statistics.mean(pt.accuracy for pt in rows) * 100:.4g}%, "
+          f"with it {statistics.mean(pt.accuracy for pt in both) * 100:.4g}% "
+          f"(serial-comm {serial * 100:.4g}%; reported, not gated)",
+          flush=True)
+    print(f"[pipeline] phase wall time {seconds:.4g} s (single-process "
+          f"references and the spawn's pipeline part)", flush=True)
 
 
 def main():

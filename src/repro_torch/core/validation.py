@@ -11,11 +11,21 @@ One device (no mesh) runs "data" at p = 1, a plain train step. On a mesh of
 p ranks (``ShardingCtx.mesh``) "data", "filter", "channel", "spatial", "df"
 and "ds" run as the rules tables of ``EXEC_STRATEGY``; as in the reference,
 "spatial" is measured under the "ds" rules on the whole (data, model) mesh
-but projected as pure spatial parallelism at p. "pipeline", "summa" and
+but projected as pure spatial parallelism at p. "pipeline" runs the stage
+executor (``parallel/schedules``) with all p ranks as stages of a (1, p)
+mesh over the same world, the paper's pure layer strategy. "summa" and
 "ep" raise, each naming its ROADMAP item.
+
+The reference's ``validate`` never measures the pipeline on a CNN: it
+bounds the stage count by ``cfg.n_layers``, which the CNN configs lack, so
+the bound is 0 and the row is skipped (and its ``measure_step`` reads
+``batch["tokens"]``). The port bounds it by ``pipeline_block_count``, the
+executor's own ceiling, as the reference's docstring intends (ROADMAP
+caveat k).
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -47,8 +57,6 @@ NOT_PORTED = {
     "ep": "expert parallelism needs MoE (ROADMAP queue 1 item 10)",
     "summa": "the 2-D tensor grid is parallel/summa.py (ROADMAP queue 1 "
              "item 8)",
-    "pipeline": "the stage executor is parallel/schedules (ROADMAP queue 1 "
-                "item 8)",
 }
 
 # oracle strategies with NO executable path, and why (so validate() skips
@@ -82,8 +90,9 @@ class ValidationPoint:
         return self._acc(self.projected_serial_s)
 
 
-def measure_step(model, batch, ctx: ShardingCtx,
-                 strategy: str = "data") -> float:
+def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
+                 segments: int = 8, schedule: str = "gpipe",
+                 virtual_stages: int = 2) -> float:
     """Measured per-iteration time of a real train step (SGD, the port's
     ``make_train_step``) on ``ctx.device``: the median of 4 steps after 2
     warm-up steps (``time_fn``).
@@ -93,7 +102,12 @@ def measure_step(model, batch, ctx: ShardingCtx,
     the same). On a mesh of p ranks, ``model`` and ``batch`` are the whole
     model and batch (the same on every rank): the step runs on this rank's
     blocks of a copy, under the strategy's rules, and every rank returns
-    the slowest rank's time."""
+    the slowest rank's time.
+
+    "pipeline" runs ``make_pipeline_train_step`` on a copy of the model, all
+    p ranks as stages of a (1, p) mesh (``Mesh.regrid``), under
+    ``schedule`` with ``segments`` microbatches (``virtual_stages``: the
+    interleaved v), cut by the block costs of the oracle's layer stats."""
     if strategy in EXEC_SKIP:
         raise NotImplementedError(
             f"oracle strategy {strategy!r} is not executable: "
@@ -117,6 +131,17 @@ def measure_step(model, batch, ctx: ShardingCtx,
         raise NotImplementedError(
             f"oracle strategy {strategy!r} is not ported: "
             f"{NOT_PORTED[strategy]}")
+    if strategy == "pipeline":
+        from ..parallel.schedules import make_pipeline_train_step
+        mesh = ctx.mesh.regrid(1, ctx.mesh.size)
+        local = copy.deepcopy(model)
+        step = make_pipeline_train_step(
+            local, opt, replace(ctx, mesh=mesh, rules=make_rules("pipeline")),
+            segments=segments, schedule=schedule,
+            virtual_stages=virtual_stages)
+        t = time_fn(step, train_state(local, opt), batch, device=ctx.device,
+                    iters=4, warmup=2)
+        return _slowest(t, mesh)
     ctx_s = replace(ctx, rules=make_rules(EXEC_STRATEGY[strategy]))
     local = sharded_copy(model, ctx_s)
     step = make_train_step(local, opt, ctx_s)
@@ -132,6 +157,10 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
     without one) on ``ctx.device``; paper Fig. 3.
 
     ``model`` and ``batch`` are whole (on every rank, the same).
+    "pipeline" is skipped, with the reason printed, where the executor
+    cannot deploy the model or p exceeds its block count
+    (``pipeline_block_count``); otherwise it is measured and projected at
+    the segment count the step runs (``clip_segments(B, cfg.segments)``).
     ``cluster``: a ClusterSpec describing the processing element (typically
     calibrated on another model, or by ``calibrate_cluster`` on the mesh) —
     projections then use it. Without it, the device is calibrated here on
@@ -156,15 +185,71 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
     for s in strategies:
         if s in EXEC_SKIP:      # explicitly not executable; see EXEC_SKIP
             continue
-        meas = measure_step(model, batch, ctx, s)
+        cfg_s = cfg
+        if s == "pipeline":
+            from ..parallel.schedules import (clip_segments,
+                                              pipeline_block_count,
+                                              pipeline_supported)
+            reason = pipeline_supported(model_cfg)
+            n_blocks = pipeline_block_count(model_cfg)
+            if reason is None and p > n_blocks:
+                reason = f"p={p} stages exceed the model's {n_blocks} blocks"
+            if reason is not None:
+                print(f"validate: skipping pipeline — {reason}")
+                continue
+            cfg_s = replace(cfg, segments=clip_segments(B, cfg.segments))
+        meas = measure_step(model, batch, ctx, s, segments=cfg_s.segments)
         pkw = {}
         if s in ("df", "ds", "ep"):
             pkw = dict(p1=ctx.mesh.shape["data"], p2=ctx.mesh.shape["model"])
-        proj = project(s, stats, tm, cfg, p, **pkw)
-        serial = project(s, stats, tm, replace(cfg, overlap=False), p, **pkw)
+        proj = project(s, stats, tm, cfg_s, p, **pkw)
+        serial = project(s, stats, tm, replace(cfg_s, overlap=False), p,
+                         **pkw)
         points.append(ValidationPoint(s, p, meas, proj.total_s,
                                       serial.total_s))
     return points
+
+
+def measure_schedule_bubble(model, make_batch, ctx: ShardingCtx, *,
+                            schedule: str = "gpipe",
+                            virtual_stages: int = 2, S_small: int = 4,
+                            S_large: int = 8, microbatch: int = 1) -> dict:
+    """Measured bubble fraction of one pipeline schedule (paper §5.2
+    methodology extended to the schedule axis).
+
+    Runs the stage executor at two microbatch counts with a FIXED
+    per-microbatch size (``make_batch(S · microbatch)`` builds the whole
+    batch), fits the step time as t(S) = a·S + b (a: the steady-state cost
+    of a microbatch; b: the fill/drain overhead) and reports the bubble
+    fraction b / t(S_large). A negative b (noise, or times that do not
+    grow linearly in S) counts as no bubble; ``intercept_s`` keeps b as
+    fitted, so such a fit shows."""
+    times = {}
+    for S in (S_small, S_large):
+        times[S] = measure_step(model, make_batch(S * microbatch), ctx,
+                                "pipeline", segments=S, schedule=schedule,
+                                virtual_stages=virtual_stages)
+    a = (times[S_large] - times[S_small]) / float(S_large - S_small)
+    fit = times[S_small] - a * S_small
+    b, t = max(fit, 0.0), times[S_large]
+    return {"schedule": schedule, "S_small": S_small, "S_large": S_large,
+            "per_microbatch_s": a, "bubble_s": b, "intercept_s": fit,
+            "t_small_s": times[S_small], "t_large_s": t,
+            "bubble_fraction": b / t if t > 0 else 0.0}
+
+
+def schedule_winner(stats, tm, cfg, p: int) -> str:
+    """The oracle's cheapest pipeline schedule at p: the schedule axis of
+    the sweep restricted to the pipeline strategy. Ties break in
+    PIPELINE_SCHEDULES order (gpipe first)."""
+    from .sweep import sweep
+    res = sweep(stats, tm, cfg, [p], strategies=("pipeline",),
+                schedules="all")
+    if len(res) == 0:
+        raise ValueError("pipeline does not apply to this layer set")
+    keep = res.feasible if res.feasible.any() else np.ones(len(res), bool)
+    idx = np.flatnonzero(keep)
+    return str(res.schedule[idx[np.argmin(res.total_s[idx])]])
 
 
 def accuracy_report(points: list[ValidationPoint]) -> str:

@@ -90,6 +90,7 @@ class Mesh:
             pg = self.device_mesh.get_group(axis)
             ranks = tuple(dist.get_process_group_ranks(pg))
             self._groups[(axis,)] = Group(pg, ranks, ranks.index(rank), stage)
+        self._regrids = {(data, model): self}
 
     @property
     def host_device(self) -> torch.device:
@@ -108,6 +109,16 @@ class Mesh:
             raise ValueError(f"no group over {axes}: the mesh's axes are "
                              f"{AXES}, taken in that order")
         return self._groups[axes]
+
+    def regrid(self, data: int, model: int) -> "Mesh":
+        """The same world as a (data, model) grid of another split, made on
+        the first call for that split and kept (a new grid makes process
+        groups: every rank calls this, in the same order)."""
+        if (data, model) not in self._regrids:
+            mesh = Mesh(data, model, backend=self.backend, device=self.device)
+            mesh._regrids = self._regrids
+            self._regrids[data, model] = mesh
+        return self._regrids[data, model]
 
     def __repr__(self):
         return (f"Mesh(data={self.shape['data']}, "

@@ -3,6 +3,7 @@ a sharded step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         [--arch resnet50|resnet152|vgg16|cosmoflow] [--strategies data,ds]
+        [--strategies pipeline --schedule gpipe|one_f_one_b|interleaved]
 
 Builds the CNN at its full config (fp32, TF32 off, random weights from seed
 0) and the train step the oracle's validation measures (SGD,
@@ -44,6 +45,7 @@ from ..configs.cnn_archs import ORACLE_BATCH
 from ..data.pipeline import Loader
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
+from ..parallel.schedules import SCHEDULE_NAMES, make_pipeline_train_step
 from ..parallel.strategies import make_rules
 from ..training.steps import make_train_step, train_state
 from .build import build_model, shard_batch
@@ -59,17 +61,23 @@ ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 _SPANS = ("comm.", "gloo:", "nccl:", "record_param_comms")
 
 
-def _warm_step(arch: str, ctx: ShardingCtx):
-    """The SGD step of ``arch`` at its oracle batch under ``ctx``, after 2
-    warm-up steps: (step, state, batch)."""
+def _warm_step(arch: str, ctx: ShardingCtx, schedule: str | None = None):
+    """The SGD step of ``arch`` at its oracle batch under ``ctx`` (with a
+    ``schedule``: the pipeline step over ``ctx.mesh``'s model axis), after
+    2 warm-up steps: (step, state, batch)."""
     cfg = get_config(arch)
-    model = build_model(cfg, ctx, seed=0)
     batch = Loader(data_config_for(cfg.model, ORACLE_BATCH[arch]),
                    ctx.device).batch_at(0)
-    if ctx.sharded:
-        batch = shard_batch(batch, ctx)
     opt = OptimizerConfig(name="sgd")
-    step, state = make_train_step(model, opt, ctx), train_state(model, opt)
+    if schedule is None:
+        model = build_model(cfg, ctx, seed=0)
+        if ctx.sharded:
+            batch = shard_batch(batch, ctx)
+        step = make_train_step(model, opt, ctx)
+    else:
+        model = build_model(cfg, ShardingCtx(ctx.device), seed=0)
+        step = make_pipeline_train_step(model, opt, ctx, schedule=schedule)
+    state = train_state(model, opt)
     for _ in range(2):
         state, _ = step(state, batch)
     torch.cuda.synchronize(ctx.device)
@@ -116,15 +124,18 @@ def _summary(prof, host_s: float) -> dict:
     }
 
 
-def _rank(mesh, arch: str, strategies: tuple) -> dict:
+def _rank(mesh, arch: str, strategies: tuple, schedule: str) -> dict:
     out = {}
     for s in strategies:
-        ctx = ShardingCtx(mesh.device, mesh=mesh, rules=make_rules(s))
-        step, state, batch = _warm_step(arch, ctx)
+        pipe = s == "pipeline"
+        ctx = ShardingCtx(mesh.device, mesh=mesh.regrid(1, RANKS) if pipe
+                          else mesh, rules=make_rules(s))
+        step, state, batch = _warm_step(arch, ctx, schedule if pipe
+                                        else None)
         prof, host_s = _traced(step, state, batch, mesh.device,
                                mesh.rank == 0)
         if mesh.rank == 0:
-            out[s] = _summary(prof, host_s)
+            out[f"{s}-{schedule}" if pipe else s] = _summary(prof, host_s)
         del step, state, batch
         torch.cuda.empty_cache()
     return out
@@ -149,20 +160,24 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="cosmoflow",
                     choices=list(ORACLE_BATCH))
+    known = CNN_STRATEGIES + ("pipeline",)
     ap.add_argument("--strategies", default=None,
-                    help=f"comma-separated, of {CNN_STRATEGIES}: profile "
-                         f"one rank of {RANKS} sharing the card")
+                    help=f"comma-separated, of {known}: profile one rank of "
+                         f"{RANKS} sharing the card")
+    ap.add_argument("--schedule", default="gpipe", choices=SCHEDULE_NAMES,
+                    help="the pipeline's schedule")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     if args.strategies:
         strategies = tuple(args.strategies.split(","))
         for s in strategies:
-            if s not in CNN_STRATEGIES:
-                raise SystemExit(f"strategy {s!r}: one of {CNN_STRATEGIES}")
+            if s not in known:
+                raise SystemExit(f"strategy {s!r}: one of {known}")
         _report_sharded(args.arch, run_ranks(
-            _rank, RANKS, args.arch, strategies, backend="gloo",
-            device="cuda", model=MODEL_AXIS, timeout_s=900)[0])
+            _rank, RANKS, args.arch, strategies, args.schedule,
+            backend="gloo", device="cuda", model=MODEL_AXIS,
+            timeout_s=900)[0])
         return
     step, state, batch = _warm_step(args.arch, ShardingCtx("cuda"))
     prof, host_s = _traced(step, state, batch, torch.device("cuda"), True)

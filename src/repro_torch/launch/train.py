@@ -4,6 +4,9 @@
         --steps 3 --batch 32
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch resnet50 --steps 3 --batch 32 --strategy ds --backend nccl
+    PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch resnet50 --smoke --steps 2 \
+        --batch 8 --device cpu --strategy pipeline --schedule one_f_one_b
 
 Trains the paper's CNNs (``--arch`` resnet50, resnet152, vgg16 or
 cosmoflow): builds the (smoke or full) model with weights drawn from
@@ -17,10 +20,20 @@ default split otherwise) over ``--backend`` (nccl: one rank per card; gloo:
 ranks sharing a card, or the CPU) and train under ``--strategy``, one of the
 CNN rule tables (data, spatial, filter, channel, df, ds): every rank draws
 the whole batch (``--batch`` is global) and keeps its block. Without a world
-it is the single-device trainer and ``--strategy`` is moot. Like the JAX
-trainer it trains without ``use_pallas``: the implicit-GEMM kernel has no
-backward yet. LM training, checkpointing, ``--strategy auto``,
-``--elastic`` and pipelines are not ported (ROADMAP queue 1).
+it is the single-device trainer and ``--strategy`` is moot.
+
+``--strategy pipeline`` is the paper's layer strategy
+(``parallel/schedules``): the ranks of the model axis (all of them unless
+``--model-axis`` says otherwise) are the stages, ``--schedule`` picks
+gpipe, one_f_one_b or interleaved (``--virtual-stages`` chunks a rank),
+``--segments`` the requested microbatch count (the step runs the largest
+deployable S ≤ it and reports it), and the cuts come from the partitioner
+over the oracle's per-block costs. ``--accum > 1`` is refused there: the
+microbatches are the accumulation.
+
+Like the JAX trainer it trains without ``use_pallas``: the implicit-GEMM
+kernel has no backward yet. LM training, checkpointing, ``--strategy
+auto`` and ``--elastic`` are not ported (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ from ..data.pipeline import DataConfig, Loader
 from ..models.cnn import CosmoFlowConfig, ResNetConfig, VGGConfig
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
+from ..parallel.schedules import SCHEDULE_NAMES, make_pipeline_train_step
 from ..parallel.strategies import make_rules
 from ..training.steps import make_train_step, train_state
 from .build import build_model, shard_batch
@@ -69,21 +83,37 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'; there is no fallback")
-    ap.add_argument("--strategy", default="df", choices=CNN_STRATEGIES,
-                    help="rules table under torchrun (moot on one device)")
+    ap.add_argument("--strategy", default="df",
+                    choices=CNN_STRATEGIES + ("pipeline",),
+                    help="rules table, or 'pipeline', under torchrun (moot "
+                         "on one device)")
+    ap.add_argument("--schedule", default="gpipe", choices=SCHEDULE_NAMES,
+                    help="pipeline schedule")
+    ap.add_argument("--segments", type=int, default=8,
+                    help="requested microbatch count S of the pipeline")
+    ap.add_argument("--virtual-stages", type=int, default=2,
+                    help="v of the interleaved schedule (chunks per rank)")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
                     help="under torchrun: nccl (one rank per card; the "
                          "default on cuda) or gloo (ranks sharing a card; "
                          "the default on the cpu)")
     ap.add_argument("--model-axis", type=int, default=None,
-                    help="ranks on the mesh's model axis")
+                    help="ranks on the mesh's model axis (the pipeline's "
+                         "stages; default: all ranks under pipeline)")
     args = ap.parse_args(argv)
+    if args.strategy == "pipeline" and args.accum != 1:
+        raise SystemExit("--accum > 1 is not supported with --strategy "
+                         "pipeline (the pipeline microbatches are the "
+                         "accumulation schedule)")
 
     world = "WORLD_SIZE" in os.environ
     if world:
         backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
         init_from_env(backend)
-        mesh = make_host_mesh(model=args.model_axis, backend=backend,
+        model_axis = args.model_axis
+        if args.strategy == "pipeline" and model_axis is None:
+            model_axis = dist.get_world_size()
+        mesh = make_host_mesh(model=model_axis, backend=backend,
                               device=args.device)
         ctx = ShardingCtx(mesh.device, mesh=mesh,
                           rules=make_rules(args.strategy))
@@ -100,9 +130,24 @@ def _loop(args, ctx: ShardingCtx) -> dict:
     log = not ctx.sharded or ctx.mesh.rank == 0
     cfg = get_config(args.arch)
     mc = cfg.smoke_model if args.smoke else cfg.model
-    model = build_model(cfg, ctx, smoke=args.smoke, seed=args.seed)
+    pipe = ctx.sharded and args.strategy == "pipeline"
     opt = OptimizerConfig(lr=args.lr)
-    step = make_train_step(model, opt, ctx, accum=args.accum)
+    if pipe:
+        # every rank holds the whole model and updates the blocks it owns
+        model = build_model(cfg, ShardingCtx(ctx.device), smoke=args.smoke,
+                            seed=args.seed)
+        step = make_pipeline_train_step(
+            model, opt, ctx, segments=args.segments,
+            schedule=args.schedule, virtual_stages=args.virtual_stages)
+        if log:
+            print(f"pipeline schedule={args.schedule}"
+                  + (f" v={args.virtual_stages}"
+                     if args.schedule == "interleaved" else "")
+                  + f" segments<={args.segments} cuts={step.bounds}",
+                  flush=True)
+    else:
+        model = build_model(cfg, ctx, smoke=args.smoke, seed=args.seed)
+        step = make_train_step(model, opt, ctx, accum=args.accum)
     state = train_state(model, opt)
     loader = Loader(data_config_for(mc, args.batch, args.seed), ctx.device)
 
@@ -111,7 +156,9 @@ def _loop(args, ctx: ShardingCtx) -> dict:
     if ctx.sharded and log:
         print(f"mesh {ctx.mesh} strategy {args.strategy}", flush=True)
     for s in range(args.steps):
-        batch = shard_batch(loader.batch_at(s), ctx)
+        batch = loader.batch_at(s)
+        if not pipe:
+            batch = shard_batch(batch, ctx)
         t0 = time.perf_counter()
         state, m = step(state, batch)
         if ctx.device.type == "cuda":

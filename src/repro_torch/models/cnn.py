@@ -17,10 +17,13 @@ tree maps one-to-one onto ``named_parameters()`` (``bridge.py``):
 
 Both flatten the channels-last tensor, (H, W, C) order, before ``fc1``.
 
-Each model has ``forward(images, ctx, train)`` → logits,
-``loss(logits, batch)`` → (loss, metrics) and ``loss_fn(batch, ctx, train)``,
-their composition. Across ranks (``ctx.sharded``) the images and targets
-are ``parallel.sharded.Sharded`` blocks, the layers follow the rules
+Each model has ``ordered_blocks()``, its forward as a list of ``Block``
+entries, stem through head (the units the pipeline cuts its stages
+between, ``parallel/schedules/hetero.py``); ``forward(images, ctx,
+train)`` → logits, which applies them in turn; ``loss(logits, batch)`` →
+(loss, metrics) and ``loss_fn(batch, ctx, train)``, their composition.
+Across ranks (``ctx.sharded``) the images and targets are
+``parallel.sharded.Sharded`` blocks, the layers follow the rules
 (``nn/layers.py``), ``ctx.constrain`` re-lays the activations out at the
 reference's points, and the loss is the mean over the whole batch, held by
 every rank.
@@ -28,6 +31,8 @@ every rank.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +48,20 @@ from ..parallel.sharded import Sharded
 # where the reference constrains a CNN activation (batch, image, channels)
 ACT_2D = ("batch", "spatial", None, "conv_out")
 ACT_3D = ("batch", "spatial", None, None, "conv_out")
+
+
+class Block(NamedTuple):
+    """One unit of a CNN's forward: ``apply(x, ctx, train)``; ``params``:
+    the prefixes, in ``named_parameters()``, of the parameters it reads."""
+    name: str
+    apply: Callable
+    params: tuple[str, ...]
+
+
+def _run(blocks: list[Block], x, ctx: ShardingCtx, train: bool):
+    for blk in blocks:
+        x = blk.apply(x, ctx, train)
+    return x
 
 
 @dataclass(frozen=True)
@@ -109,12 +128,26 @@ class ResNet(nn.Module):
                           device=device, generator=generator, in_axis="mlp",
                           out_axis="vocab")
 
+    def ordered_blocks(self) -> list[Block]:
+        """stem (conv, BatchNorm, ReLU, 3×3/2 SAME max-pool), the
+        bottlenecks ``s{stage}b{i}``, head (global average pool, dense)."""
+        def stem(x, ctx, train):
+            h = torch.relu(self.bn_stem(self.stem(x, ctx), ctx, train))
+            return max_pool(h, (3, 3), (2, 2), "SAME")
+
+        def head(x, ctx, train):
+            return self.head(global_avg_pool(x), ctx)
+
+        out, i = [Block("stem", stem, ("stem.", "bn_stem."))], 0
+        for stage, n in enumerate(self.cfg.stage_sizes):
+            for b in range(n):
+                out.append(Block(f"s{stage}b{b}", self.blocks[i],
+                                 (f"blocks.{i}.",)))
+                i += 1
+        return out + [Block("head", head, ("head.",))]
+
     def forward(self, x, ctx: ShardingCtx, train: bool = True):
-        h = torch.relu(self.bn_stem(self.stem(x, ctx), ctx, train))
-        h = max_pool(h, (3, 3), (2, 2), "SAME")
-        for block in self.blocks:
-            h = block(h, ctx, train)
-        return self.head(global_avg_pool(h), ctx)
+        return _run(self.ordered_blocks(), x, ctx, train)
 
     def loss(self, logits, batch):
         ce = _softmax_xent(logits, batch["labels"])
@@ -159,17 +192,28 @@ class VGG(nn.Module):
         self.fc3 = Dense(4096, c.n_classes, use_bias=True, in_axis="mlp",
                          out_axis="vocab", **kw)
 
+    def ordered_blocks(self) -> list[Block]:
+        """``conv{i}``: each conv with its ReLU and the max-pool behind it
+        where the layout has one; fc: fc1–fc3."""
+        pools = [_VGG16_LAYOUT[k + 1:k + 2] == ("M",)
+                 for k, v in enumerate(_VGG16_LAYOUT) if v != "M"]
+
+        def conv_block(x, ctx, train, conv, pool):
+            h = ctx.constrain(torch.relu(conv(x, ctx)), ACT_2D)
+            return max_pool(h, (2, 2), (2, 2), "VALID") if pool else h
+
+        def head(x, ctx, train):
+            h = torch.relu(self.fc1(flatten(x), ctx))
+            h = torch.relu(self.fc2(h, ctx))
+            return self.fc3(h, ctx)
+
+        return [Block(f"conv{i}", partial(conv_block, conv=conv, pool=pool),
+                      (f"convs.{i}.",))
+                for i, (conv, pool) in enumerate(zip(self.convs, pools))] + [
+            Block("fc", head, ("fc1.", "fc2.", "fc3."))]
+
     def forward(self, x, ctx: ShardingCtx, train: bool = True):
-        h, convs = x, iter(self.convs)
-        for v in _VGG16_LAYOUT:
-            if v == "M":
-                h = max_pool(h, (2, 2), (2, 2), "VALID")
-            else:
-                h = ctx.constrain(torch.relu(next(convs)(h, ctx)), ACT_2D)
-        h = flatten(h)
-        h = torch.relu(self.fc1(h, ctx))
-        h = torch.relu(self.fc2(h, ctx))
-        return self.fc3(h, ctx)
+        return _run(self.ordered_blocks(), x, ctx, train)
 
     def loss(self, logits, batch):
         ce = _softmax_xent(logits, batch["labels"])
@@ -213,15 +257,25 @@ class CosmoFlow(nn.Module):
         self.out = Dense(64, c.n_targets, use_bias=True, in_axis="mlp",
                          out_axis=None, **kw)
 
+    def ordered_blocks(self) -> list[Block]:
+        """``conv{i}``: each conv with its leaky ReLU and 2×2×2 max-pool;
+        fc: fc1, fc2 and out."""
+        def conv_block(x, ctx, train, conv):
+            h = ctx.constrain(F.leaky_relu(conv(x, ctx), 0.01), ACT_3D)
+            return max_pool(h, (2, 2, 2), (2, 2, 2), "VALID")
+
+        def head(x, ctx, train):
+            h = F.leaky_relu(self.fc1(flatten(x), ctx), 0.01)
+            h = F.leaky_relu(self.fc2(h, ctx), 0.01)
+            return self.out(h, ctx)
+
+        return [Block(f"conv{i}", partial(conv_block, conv=conv),
+                      (f"convs.{i}.",))
+                for i, conv in enumerate(self.convs)] + [
+            Block("fc", head, ("fc1.", "fc2.", "out."))]
+
     def forward(self, x, ctx: ShardingCtx, train: bool = True):
-        h = x
-        for conv in self.convs:
-            h = ctx.constrain(F.leaky_relu(conv(h, ctx), 0.01), ACT_3D)
-            h = max_pool(h, (2, 2, 2), (2, 2, 2), "VALID")
-        h = flatten(h)
-        h = F.leaky_relu(self.fc1(h, ctx), 0.01)
-        h = F.leaky_relu(self.fc2(h, ctx), 0.01)
-        return self.out(h, ctx)
+        return _run(self.ordered_blocks(), x, ctx, train)
 
     def loss(self, pred, batch):
         tgt = batch["targets"]
@@ -264,3 +318,7 @@ def _batch_mean(local_sum, like: Sharded, n: int):
     if like.place[0]:
         local_sum = C.all_reduce(local_sum, like.mesh.group(like.place[0]))
     return local_sum / n
+
+
+CNN_MODELS = {ResNetConfig: ResNet, VGGConfig: VGG,
+              CosmoFlowConfig: CosmoFlow}

@@ -1,4 +1,4 @@
 """Parallel execution across ranks: the strategies' rule tables
 (``strategies``), sharded activations (``sharded``), the collectives that
-autograd differentiates (``collectives``) and the halo-exchange conv
-(``halo``)."""
+autograd differentiates (``collectives``), the halo-exchange conv
+(``halo``) and the pipeline schedules (``schedules``)."""

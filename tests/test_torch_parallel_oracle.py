@@ -48,10 +48,11 @@ def _ranks(mesh22):
                        flops_per_sample=flops, B=BATCH, cluster=spec)
         out[mesh.shape["data"]] = (spec, [m.to_json() for m in ms], pts)
     raised = {}
-    for s in ("pipeline", "summa", "ep"):
+    for s, exc in (("pipeline", ValueError), ("summa", NotImplementedError),
+                   ("ep", NotImplementedError)):
         try:
             measure_step(model, batch, ShardingCtx("cpu", mesh=mesh22), s)
-        except NotImplementedError as e:
+        except exc as e:
             raised[s] = str(e)
     out["raised"] = raised
     out["self"] = validate(model, mc, batch, ShardingCtx("cpu", mesh=mesh22),
@@ -124,11 +125,13 @@ def test_validate_at_p4_projects_as_project(ranks, data):
 
 
 def test_unported_strategies_raise_and_self_calibration_runs(ranks):
-    """pipeline, summa and ep raise on a mesh, each naming its ROADMAP item;
-    ``validate`` without a cluster calibrates the ranks itself (compute on
-    one rank, divided by p; α/β per axis) and gives finite points."""
+    """summa and ep raise on a mesh, each naming its ROADMAP item; pipeline
+    runs (tests/test_torch_pipeline_train.py), but not with the 4 ranks
+    as stages of the smoke CosmoFlow's 3 blocks; ``validate`` without a
+    cluster calibrates the ranks itself (compute on one rank, divided by p;
+    α/β per axis) and gives finite points."""
     r0 = ranks[0]
-    assert "queue 1 item 8" in r0["raised"]["pipeline"]
+    assert "4 stages × 1 virtual exceed 3 blocks" in r0["raised"]["pipeline"]
     assert "queue 1 item 8" in r0["raised"]["summa"]
     assert "queue 1 item 10" in r0["raised"]["ep"]
     for pt in r0["self"]:
