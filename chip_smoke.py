@@ -99,11 +99,38 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              decode step; logits against the plain path within the bar
              stated at SERVE_TOL. Then the whole model in fp32, kernel path
              against plain path, within FP32_SERVE_TOL.
+  8. lm-train repro_torch.launch.train.main, 3 AdamW steps each, bf16 at
+             full width, on the plain path (no kernel has a backward):
+             Qwen1.5-4B at batch 2, seq 512, and Mamba-2 780m at batch 2,
+             seq 1024 (configs.lm_archs.LM_TRAIN_SHAPE); ms/step, tokens/s and the peak memory; every loss
+             finite. Then the fp32 smoke Qwen and Mamba take two AdamW
+             steps on the card and on the CPU from the same weights (drawn
+             on the CPU from seed 0) and batches: the first loss, the first
+             gradient norm and the second loss within LM_CPU_TOL.
+  9. engine  Qwen1.5-4B at full width in bf16 (seed 0) behind the serving
+             engine with use_pallas: 16 requests of TrafficModel(rate 8,
+             prompt_len 256, gen_len 32), seed 0, max_batch 8, block_tokens
+             16, prefill_chunk 64 (launch.profile_serve.engine_cell), max_len from the trace as launch/serve.py
+             reckons it (448), replayed closed-loop by
+             core.validation.measure_serving (a warm-up replay, reset, the
+             measured one). Every request returns gen_len tokens and every
+             block is free after; rmsnorm launches 81 times and
+             flash_attention never in every cell call (prefill chunk or
+             decode batch). Requests ENGINE_CHECKED again through an engine:
+             their logits at the first generated token against a solo
+             dense-cache greedy decode of the same prompt within SERVE_TOL
+             of their scale (the share of their tokens that match is
+             printed, not gated: bf16 GEMMs at batch 8 and 1 may round
+             differently). The report's tok/s, TTFT and latency p50/p99 and
+             the peak memory, beside price_serving("serve_tp", p1 = p2 = 1,
+             max_batch 8, the same traffic) on cuda_device_model with phase
+             5b's HBM rate and the bf16 peak: reported, gated on finiteness.
 Then a JSON line for the kernels, the nvidia-smi line, and the result line.
 It imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -120,13 +147,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.cnn_archs import ORACLE_BATCH  # noqa: E402
+from repro_torch.configs.lm_archs import LM_TRAIN_SHAPE  # noqa: E402
 from repro_torch.core.calibration import calibrate_host_system  # noqa: E402
 from repro_torch.core.cluster import ClusterSpec  # noqa: E402
+from repro_torch.core.hardware import cuda_device_model  # noqa: E402
 from repro_torch.core.layer_stats import stats_for  # noqa: E402
 from repro_torch.core.oracle import (OracleConfig, TimeModel,  # noqa: E402
                                      project)
 from repro_torch.core.validation import (accuracy_report,  # noqa: E402
-                                         validate)
+                                         measure_serving, validate)
 from repro_torch.data.pipeline import Loader  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.conv2d_gemm.conv2d_gemm import (  # noqa: E402
@@ -146,8 +175,10 @@ from repro_torch.kernels.util import (cdiv, largest_divisor,  # noqa: E402
                                       same_pads)
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.build import build_model  # noqa: E402
+from repro_torch.launch.profile_serve import engine_cell  # noqa: E402
 from repro_torch.nn.module import ShardingCtx, zeros_like_spec  # noqa: E402
 from repro_torch.optim.optimizers import OptimizerConfig  # noqa: E402
+from repro_torch.serve import Engine, price_serving  # noqa: E402
 from repro_torch.training.steps import (make_decode_step,  # noqa: E402
                                         make_eval_step, make_prefill_step,
                                         make_train_step, train_state)
@@ -404,6 +435,28 @@ FP32_SERVE_TOL = 1e-4
 # in each decode step
 SERVE_LAUNCHES = {"qwen1.5-4b": ((81, 40, 0), (81, 0, 0)),
                   "mamba2-780m": ((97, 0, 48), (97, 0, 0))}
+
+# The lm-train phase: 3 AdamW steps of each LM at full width, at its
+# (batch, seq) in LM_TRAIN_SHAPE (Mamba-2 780m at batch 2: see there).
+# Card against CPU, fp32 smoke configs, TF32 off, the same weights and
+# batches (LM_CPU_BATCH sequences of LM_CPU_SEQ tokens): bars on the
+# relative distance of (first loss, first gradient norm, second loss). The
+# two devices sum each matmul and reduction in another order (~1e-7 of a
+# loss is typical), and exp/log round differently in the last bit: 1e-5
+# for the loss, 1e-4 for the norm (a sum of squares over every gradient,
+# some of them sums with cancellation: the CPU tests read 6e-6 between the
+# packages for one Mamba tensor). AdamW's first update is lr·g/(|g| + eps),
+# which turns gradients near eps (1e-8) into updates that differ by up to
+# lr between devices, so the second loss gets 1e-3, the bar of the
+# parallel phase's second loss.
+LM_CPU_TOL = (1e-5, 1e-4, 1e-3)
+LM_CPU_BATCH, LM_CPU_SEQ = 4, 32
+# The engine phase: Qwen1.5-4B, bf16, full width, in launch.profile_serve's
+# engine_cell; requests held against a solo dense-cache greedy decode
+ENGINE_CHECKED = (0, 1)
+# launches of (rmsnorm, flash_attention, ssd_chunk) in every engine cell
+# call: 2 norms a layer and the final one, the attention in plain torch
+ENGINE_CELL_LAUNCHES = (81, 0, 0)
 
 
 def fail(msg: str):
@@ -1654,6 +1707,188 @@ def _report_pipeline(results, refs, rows, note, seconds, cluster):
           f"references and the spawn's pipeline part)", flush=True)
 
 
+def _fp32_smoke(arch: str):
+    """``arch``'s registered config with the smoke model in fp32."""
+    cfg = get_config(arch)
+    mc = cfg.smoke_model
+    sub = {k: dataclasses.replace(getattr(mc, k), dtype=torch.float32)
+           for k in ("attn", "ffn", "ssm") if getattr(mc, k) is not None}
+    return dataclasses.replace(cfg, smoke_model=dataclasses.replace(
+        mc, dtype=torch.float32, **sub))
+
+
+def _two_adamw_steps(model, device) -> tuple[float, float, float]:
+    """(first loss, first gradient norm, second loss) of two AdamW steps
+    of ``model`` on ``device``, batches 0 and 1 of the seeded token
+    stream."""
+    ctx = ShardingCtx(device)
+    opt = OptimizerConfig()
+    step = make_train_step(model, opt, ctx, q_chunk=LM_CPU_SEQ)
+    state = train_state(model, opt)
+    loader = Loader(train.data_config_for(model.cfg, LM_CPU_BATCH,
+                                          LM_CPU_SEQ, seed=0), device)
+    state, m0 = step(state, loader.batch_at(0))
+    state, m1 = step(state, loader.batch_at(1))
+    return float(m0["loss"]), float(m0["grad_norm"]), float(m1["loss"])
+
+
+def phase_lm_train(dev):
+    """The LMs' training steps at full width (LM_TRAIN_SHAPE), then the fp32
+    smoke steps on the card against the CPU."""
+    for arch, (batch, seq) in LM_TRAIN_SHAPE.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = train.main(["--arch", arch, "--batch", str(batch), "--seq",
+                          str(seq), "--steps", "3", "--log-every", "1",
+                          "--device", "cuda"])
+        losses = out["losses"]
+        if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
+            fail(f"[lm-train] {arch} losses {losses}")
+        step_ms = statistics.mean(out["step_s"][1:]) * 1e3
+        print(f"[lm-train] {arch} batch={batch} seq={seq} steps=3 losses="
+              f"{','.join(f'{v:.6g}' for v in losses)} "
+              f"ms_per_step={step_ms:.6g} "
+              f"first_step_ms={out['step_s'][0] * 1e3:.6g} "
+              f"tokens_per_s={batch * seq / step_ms * 1e3:.6g} "
+              f"peak_gb={torch.cuda.max_memory_allocated() / 1e9:.4g}",
+              flush=True)
+        del out
+        torch.cuda.empty_cache()
+    names = ("first_loss", "grad_norm", "second_loss")
+    for arch in ("qwen1.5-4b", "mamba2-780m"):
+        cpu_model = build_model(_fp32_smoke(arch), ShardingCtx("cpu"),
+                                smoke=True, seed=0)
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        card = _two_adamw_steps(card_model, dev)
+        cpu = _two_adamw_steps(cpu_model, torch.device("cpu"))
+        rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+        print(f"[lm-train] {arch} fp32 smoke, card vs cpu: "
+              + " ".join(f"{n}={a:.9g}/{b:.9g} rel={r:.3g}"
+                         for n, a, b, r in zip(names, card, cpu, rel)),
+              flush=True)
+        for n, r, tol in zip(names, rel, LM_CPU_TOL):
+            if not r <= tol:
+                fail(f"[lm-train] {arch} fp32 smoke {n}: card vs cpu "
+                     f"relative {r} over {tol}")
+
+
+class _FirstLogits(Engine):
+    """The engine, keeping the logits (vocab,) at the first generated
+    token of the requests in ``keep``."""
+
+    def __init__(self, *args, keep=()):
+        super().__init__(*args)
+        self.keep, self.first_logits = set(keep), {}
+
+    def _first_token(self, stats, logits):
+        if stats.rid in self.keep:
+            self.first_logits[stats.rid] = logits.clone()
+        return super()._first_token(stats, logits)
+
+
+def _solo_greedy(model, ctx, prompt, max_new: int, max_len: int):
+    """Dense-cache single-sequence greedy decode: (the logits at the first
+    generated token, the tokens)."""
+    cache = zeros_like_spec(model.cache_spec(1, max_len), ctx.device)
+    tokens = torch.from_numpy(prompt[None]).to(ctx.device)
+    logits, cache = make_prefill_step(model, ctx)({"tokens": tokens}, cache)
+    first, toks = logits[0, 0].clone(), [int(logits[0, 0].argmax())]
+    decode = make_decode_step(model, ctx)
+    for i in range(max_new - 1):
+        logits, cache = decode(torch.tensor([[toks[-1]]], device=ctx.device),
+                               cache, len(prompt) + i)
+        toks.append(int(logits[0, 0].argmax()))
+    return first, toks
+
+
+def phase_engine(dev, hbm_bw: float) -> int:
+    """Qwen1.5-4B behind the serving engine (phase 9 of the docstring);
+    returns the rmsnorm launches of the measure_serving run."""
+    cfg = get_config("qwen1.5-4b")
+    mc = cfg.model
+    ctx = ShardingCtx(dev, use_pallas=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, ctx, seed=0)
+    traffic, trace, scfg = engine_cell(mc.vocab)
+    max_len = scfg.max_len
+
+    # each cell call runs decode_step once: its launches, call by call
+    per_call, decode_step = [], model.decode_step
+
+    def counted(*args):
+        before = _counts()
+        out = decode_step(*args)
+        per_call.append(tuple(a - b for a, b in zip(_counts(), before)))
+        return out
+
+    model.decode_step = counted
+    _reset_counts()
+    t0 = time.perf_counter()
+    report = measure_serving(model, ctx, "serve_tp", scfg, trace)
+    seconds = time.perf_counter() - t0
+    total = _counts()
+    del model.decode_step
+    peak = torch.cuda.max_memory_allocated()
+    if not per_call or any(c != ENGINE_CELL_LAUNCHES for c in per_call):
+        bad = sorted(set(per_call) - {ENGINE_CELL_LAUNCHES})
+        fail(f"[engine] {len(per_call)} cell calls launched (rmsnorm, "
+             f"flash_attention, ssd_chunk) {bad}, not {ENGINE_CELL_LAUNCHES}")
+    done = [len(r.tokens) for r in report.requests]
+    if done != [traffic.gen_len] * len(trace):
+        fail(f"[engine] tokens per request {done}")
+
+    # the checked requests again, their first logits kept, and alone
+    eng = _FirstLogits(model, ctx, scfg, keep=ENGINE_CHECKED)
+    rep = eng.run([trace[i] for i in ENGINE_CHECKED], honor_arrivals=False)
+    if eng.alloc.free_blocks != eng.alloc.capacity:
+        fail(f"[engine] {eng.alloc.capacity - eng.alloc.free_blocks} blocks "
+             f"still held after the replay")
+    for stats in rep.requests:
+        first, toks = _solo_greedy(model, ctx, trace[stats.rid].prompt,
+                                   traffic.gen_len, max_len)
+        d = _logit_diff(eng.first_logits[stats.rid], first)
+        match = statistics.mean(a == b for a, b in zip(stats.tokens, toks))
+        print(f"[engine] request {stats.rid} (prompt {stats.prompt_len}) "
+              f"first-token logits engine vs solo dense decode: "
+              + " ".join(f"{k}={v:.6g}" for k, v in d.items())
+              + f" tokens_matching={match:.4g}", flush=True)
+        if not d["rel"] <= SERVE_TOL["qwen1.5-4b"]:
+            fail(f"[engine] request {stats.rid}: first-token logits "
+                 f"relative diff {d['rel']} over {SERVE_TOL['qwen1.5-4b']}")
+
+    summ = report.summary()
+    sysm = cuda_device_model(dev, hbm_bw=hbm_bw,
+                             flops=PEAK_FLOPS[torch.bfloat16])
+    proj = price_serving(mc, sysm, "serve_tp", 1, 1, 1, scfg.max_batch,
+                         traffic, max_len=max_len,
+                         prefill_chunk=scfg.prefill_chunk)
+    print(f"[engine] qwen1.5-4b requests={len(trace)} max_len={max_len} "
+          f"geometry={eng.geo} cell_calls={len(per_call)} "
+          f"launches_rmsnorm={total[0]} launches_flash={total[1]} "
+          f"replays_s={seconds:.4g} max_memory_allocated={peak}", flush=True)
+    print(f"[engine] measured (closed loop): tok_per_s={summ['tok_per_s']:.6g} "
+          f"wall_s={summ['wall_s']:.6g} "
+          f"ttft_p50_ms={summ['ttft_p50_s'] * 1e3:.6g} "
+          f"ttft_p99_ms={summ['ttft_p99_s'] * 1e3:.6g} "
+          f"latency_p50_ms={summ['latency_p50_s'] * 1e3:.6g} "
+          f"latency_p99_ms={summ['latency_p99_s'] * 1e3:.6g}", flush=True)
+    print(f"[engine] projected (price_serving serve_tp on {sysm.name}, "
+          f"hbm_bw={hbm_bw:.6g}, bf16 peak): tok_per_s={proj.tok_per_s:.6g} "
+          f"t_prefill_ms={proj.t_prefill * 1e3:.6g} "
+          f"t_decode_ms={proj.t_decode * 1e3:.6g} rho={proj.rho:.4g} "
+          f"ttft_p99_ms={proj.ttft_p99 * 1e3:.6g} "
+          f"latency_p99_ms={proj.latency_p99 * 1e3:.6g} "
+          f"feasible={proj.feasible} (reported, gated on finiteness)",
+          flush=True)
+    if not all(math.isfinite(v) for v in (proj.tok_per_s, proj.latency_p99,
+                                          proj.ttft_p99)):
+        fail(f"[engine] projection not finite: {proj}")
+    del model, eng
+    torch.cuda.empty_cache()
+    return total[0]
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1672,8 +1907,10 @@ def main():
     qwen = phase_serve(dev, "qwen1.5-4b")
     mamba = phase_serve(dev, "mamba2-780m")
     phase_fp32_serve(dev, "mamba2-780m")
-    # rmsnorm runs on both LM paths: its launches are the two runs' sum
-    rms["launches"] = qwen[0] + mamba[0]
+    phase_lm_train(dev)
+    # rmsnorm runs on both LM serving paths and the engine: its launches
+    # are the three runs' sum
+    rms["launches"] = qwen[0] + mamba[0] + phase_engine(dev, hbm_bw)
     flash["launches"], ssd["launches"] = qwen[1], mamba[2]
     print(json.dumps({"kernels": [conv, rms, flash, ssd]}))
     print(smi)

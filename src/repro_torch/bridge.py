@@ -14,6 +14,10 @@ on the ``meta`` device is checked, not filled. A model whose parameters are
 one rank's blocks (``parallel.sharded.shard_params``) is checked against the
 whole leaves and takes each leaf's block (``p.shard_index``); so are the
 optimizer moments of its train state.
+
+``cache_from_jax`` turns the reference's LM cache or paged pool (its
+layers stacked, ``stacks/p/k`` of (G, ...)) into the port's per-layer list
+``{"blocks": [{"k", "v"}, ...]}``, so caches and pools compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -112,3 +116,18 @@ def load_jax_state(state: dict, tree) -> None:
     for k, moments in state["opt"].items():
         _copy_into(moments, tree["opt"][k], f"opt/{k}", state["params"])
     state["step"] = int(np.asarray(tree["step"]))
+
+
+def cache_from_jax(tree) -> dict:
+    """The port's ``{"blocks": [{name: tensor}, ...]}`` cache (or pool) of a
+    JAX LM cache or pool tree with numpy leaves, layers unstacked."""
+    leaves = _unstack_layers(flatten(tree))
+    other = sorted(k for k in leaves if not k.startswith("blocks."))
+    if other:
+        raise ValueError(f"cache leaves outside the layer stacks: {other}")
+    n = 1 + max(int(k.split(".")[1]) for k in leaves)
+    blocks: list[dict] = [{} for _ in range(n)]
+    for k, v in leaves.items():
+        _, layer, name = k.split(".", 2)
+        blocks[int(layer)][name] = _to_tensor(v)
+    return {"blocks": blocks}

@@ -13,6 +13,13 @@ from .base import ArchConfig, register
 
 BF16 = torch.bfloat16
 
+# The (batch, seq) at which the LMs' full-width training step is measured
+# on one card (chip_smoke.py's lm-train phase, launch.profile_train).
+# Mamba-2 780m runs at batch 2: its plain SSD saves ~2.0 GB a layer for the
+# backward at 4 x 1024 tokens, ~98 GB over 48 layers, more than an 80 GB
+# card holds, and ~1.0 GB a layer at 2 x 1024 (scripts/lm_train_memory.py).
+LM_TRAIN_SHAPE = {"qwen1.5-4b": (2, 512), "mamba2-780m": (2, 1024)}
+
 
 # mamba2-780m — SSD, attention-free [arXiv:2405.21060; unverified]
 @register("mamba2-780m")

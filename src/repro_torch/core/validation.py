@@ -14,7 +14,8 @@ and "ds" run as the rules tables of ``EXEC_STRATEGY``; as in the reference,
 but projected as pure spatial parallelism at p. "pipeline" runs the stage
 executor (``parallel/schedules``) with all p ranks as stages of a (1, p)
 mesh over the same world, the paper's pure layer strategy. "summa" and
-"ep" raise, each naming its ROADMAP item.
+"ep" raise, each naming its ROADMAP item. ``measure_serving`` replays a
+request trace through the serving engine on one device.
 
 The reference's ``validate`` never measures the pipeline on a CNN: it
 bounds the stage count by ``cfg.n_layers``, which the CNN configs lack, so
@@ -208,6 +209,36 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
         points.append(ValidationPoint(s, p, meas, proj.total_s,
                                       serial.total_s))
     return points
+
+
+def measure_serving(model, ctx: ShardingCtx, strategy: str, serve_cfg,
+                    requests, *, warmup: bool = True,
+                    honor_arrivals: bool = False):
+    """Measured serving replay: the continuous-batching engine
+    (``serve.engine``) with ``model`` on ``ctx.device``, fed ``requests``
+    (a trace from ``TrafficModel.trace``). Returns the engine's
+    ServeReport: the tok/s and latency percentiles the serving oracle is
+    validated against.
+
+    ``warmup`` replays the trace once first (and ``reset``s), so the first
+    calls' costs (cuBLAS's choices, the kernels' builds) stay out of the
+    measured wall clock; ``honor_arrivals=False`` (the default) replays
+    closed-loop, measuring capacity rather than queueing. One device and
+    ``serve_tp`` at width 1 is the only layout: the sharded layouts
+    (``serve_tp`` wider than 1, ``serve_seqkv``) are ROADMAP queue 1
+    item 6."""
+    from ..serve.engine import Engine
+    width = ctx.mesh.size if ctx.sharded else 1
+    if strategy != "serve_tp" or width != 1 or serve_cfg.kv_shards != 1:
+        raise NotImplementedError(
+            f"serving layout {strategy!r} at width {width}, kv_shards="
+            f"{serve_cfg.kv_shards}: the port serves serve_tp on one device; "
+            f"the sharded serving layouts are ROADMAP queue 1 item 6")
+    eng = Engine(model, ctx, serve_cfg)
+    if warmup:
+        eng.run(requests, honor_arrivals=False)
+        eng.reset()
+    return eng.run(requests, honor_arrivals=honor_arrivals)
 
 
 def measure_schedule_bubble(model, make_batch, ctx: ShardingCtx, *,

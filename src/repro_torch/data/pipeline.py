@@ -1,10 +1,11 @@
 """Deterministic synthetic data (counterpart of ``repro.data.pipeline``).
 
 Batch t of run seed s is a pure function of (s, t), drawn by numpy from the
-same ``default_rng((seed, step, 7))`` stream as the JAX package, so both get
-bit-identical batches. The ``image`` (ResNet, VGG16) and ``volume``
-(CosmoFlow) sources are ported; token and multimodal sources come with the
-models that read them.
+same streams as the JAX package (``default_rng((seed, step, 7))`` for the
+images and volumes, ``default_rng((seed, step))`` for the tokens), in the
+same order, so both get bit-identical batches. The ``lm`` source (the LMs),
+``image`` (ResNet, VGG16) and ``volume`` (CosmoFlow) are ported; the
+multimodal sources come with the models that read them.
 """
 from __future__ import annotations
 
@@ -15,13 +16,41 @@ import torch
 
 @dataclass(frozen=True)
 class DataConfig:
-    kind: str                 # "image" | "volume" (the kinds ported so far)
+    kind: str                 # "lm" | "image" | "volume" (the kinds ported)
     batch: int
+    seq_len: int = 0
+    vocab: int = 0
     image: int = 0
     channels: int = 3
     classes: int = 0
     n_targets: int = 0
     seed: int = 0
+
+
+class TokenSource:
+    """Synthetic LM stream: uniform first tokens, then a fixed random bigram
+    map (drawn from ``seed``) followed with probability 0.85 and a uniform
+    token otherwise, so a small model's loss visibly falls. int32 ids."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        self._next = rng.integers(0, cfg.vocab, size=(cfg.vocab,),
+                                  dtype=np.int32)
+
+    def batch_at(self, step: int) -> dict:
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed, step))
+        first = rng.integers(0, cfg.vocab, size=(cfg.batch, 1),
+                             dtype=np.int32)
+        toks = [first[:, 0]]
+        noise = rng.random((cfg.batch, cfg.seq_len - 1)) < 0.15
+        for t in range(cfg.seq_len - 1):
+            nxt = self._next[toks[-1]]
+            rand = rng.integers(0, cfg.vocab, size=(cfg.batch,),
+                                dtype=np.int32)
+            toks.append(np.where(noise[:, t], rand, nxt).astype(np.int32))
+        return {"tokens": np.stack(toks, axis=1)}
 
 
 class SyntheticSource:
@@ -56,11 +85,15 @@ class SyntheticSource:
         return {"images": x, "targets": t.astype(np.float32)}
 
 
+def make_source(cfg: DataConfig):
+    return TokenSource(cfg) if cfg.kind == "lm" else SyntheticSource(cfg)
+
+
 class Loader:
     """Iterates (seed, step)-addressable batches, placed on ``device``."""
 
     def __init__(self, cfg: DataConfig, device: torch.device):
-        self.source = SyntheticSource(cfg)
+        self.source = make_source(cfg)
         self.device = device
 
     def batch_at(self, step: int) -> dict:

@@ -38,7 +38,8 @@ def build_model(cfg: ArchConfig, ctx: ShardingCtx, smoke: bool = False,
     if ctx.sharded:
         raise NotImplementedError(
             f"{type(mc).__name__} across ranks is not ported: the LMs run on "
-            f"one device (LM training is ROADMAP queue 1 item 4)")
+            f"one device (the LM rows under the strategies are ROADMAP "
+            f"queue 1 item 6)")
     if isinstance(mc, LMConfig):
         gen = torch.Generator(device=ctx.device).manual_seed(seed)
         return TransformerLM(mc, device=ctx.device, generator=gen)

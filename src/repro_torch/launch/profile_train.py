@@ -1,8 +1,9 @@
-"""Where the time of a CNN training step goes, on one GPU or on one rank of
-a sharded step.
+"""Where the time of a training step goes, on one GPU or on one rank of a
+sharded CNN step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        [--arch resnet50|resnet152|vgg16|cosmoflow] [--strategies data,ds]
+        [--arch resnet50|resnet152|vgg16|cosmoflow|qwen1.5-4b|mamba2-780m]
+        [--strategies data,ds]
         [--strategies pipeline --schedule gpipe|one_f_one_b|interleaved]
 
 Builds the CNN at its full config (fp32, TF32 off, random weights from seed
@@ -10,7 +11,10 @@ Builds the CNN at its full config (fp32, TF32 off, random weights from seed
 ``core.validation.measure_step``), warms up 2 steps, then traces 2 steps
 with ``torch.profiler`` (CPU and CUDA activities). The batch is the model's
 ``configs.cnn_archs.ORACLE_BATCH``, as in ``chip_smoke.py``'s oracle phase.
-Imports nothing of jax or of the JAX package; needs CUDA.
+An LM (bf16, full width) takes the trainer's AdamW step at its
+``configs.lm_archs.LM_TRAIN_SHAPE`` (batch, seq), as in ``chip_smoke.py``'s
+lm-train phase, on one device. Imports nothing of jax or of the JAX
+package; needs CUDA.
 
 Without ``--strategies``: one process on the card. Prints, as
 ``profile_serve`` does, the host time, the summed device time of the
@@ -42,6 +46,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..configs.cnn_archs import ORACLE_BATCH
+from ..configs.lm_archs import LM_TRAIN_SHAPE
 from ..data.pipeline import Loader
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
@@ -61,19 +66,31 @@ ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 _SPANS = ("comm.", "gloo:", "nccl:", "record_param_comms")
 
 
+def _shape(arch: str) -> str:
+    if arch in LM_TRAIN_SHAPE:
+        return "b{}_s{}".format(*LM_TRAIN_SHAPE[arch])
+    return f"b{ORACLE_BATCH[arch]}"
+
+
 def _warm_step(arch: str, ctx: ShardingCtx, schedule: str | None = None):
-    """The SGD step of ``arch`` at its oracle batch under ``ctx`` (with a
-    ``schedule``: the pipeline step over ``ctx.mesh``'s model axis), after
-    2 warm-up steps: (step, state, batch)."""
+    """The SGD step of CNN ``arch`` at its oracle batch under ``ctx`` (with
+    a ``schedule``: the pipeline step over ``ctx.mesh``'s model axis), or
+    an LM's AdamW step at its LM_TRAIN_SHAPE, after 2 warm-up steps:
+    (step, state, batch)."""
     cfg = get_config(arch)
-    batch = Loader(data_config_for(cfg.model, ORACLE_BATCH[arch]),
+    if arch in LM_TRAIN_SHAPE:
+        size, seq = LM_TRAIN_SHAPE[arch]
+        opt, fwd_kw = OptimizerConfig(), {"q_chunk": min(256, seq)}
+    else:
+        size, seq = ORACLE_BATCH[arch], 0
+        opt, fwd_kw = OptimizerConfig(name="sgd"), {}
+    batch = Loader(data_config_for(cfg.model, size, seq),
                    ctx.device).batch_at(0)
-    opt = OptimizerConfig(name="sgd")
     if schedule is None:
         model = build_model(cfg, ctx, seed=0)
         if ctx.sharded:
             batch = shard_batch(batch, ctx)
-        step = make_train_step(model, opt, ctx)
+        step = make_train_step(model, opt, ctx, **fwd_kw)
     else:
         model = build_model(cfg, ShardingCtx(ctx.device), seed=0)
         step = make_pipeline_train_step(model, opt, ctx, schedule=schedule)
@@ -143,7 +160,7 @@ def _rank(mesh, arch: str, strategies: tuple, schedule: str) -> dict:
 
 def _report_sharded(arch: str, res: dict) -> None:
     for s, r in res.items():
-        name = f"{arch}_b{ORACLE_BATCH[arch]}_{s}_p{RANKS}"
+        name = f"{arch}_{_shape(arch)}_{s}_p{RANKS}"
         comm = sum(r["comm_host_ms"].values())
         print(f"[profile] {name}: host_ms_per_step={r['host_ms']:.6g} "
               f"rank0_kernel_ms={r['kernel_ms']:.6g} "
@@ -159,7 +176,7 @@ def _report_sharded(arch: str, res: dict) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="cosmoflow",
-                    choices=list(ORACLE_BATCH))
+                    choices=list(ORACLE_BATCH) + list(LM_TRAIN_SHAPE))
     known = CNN_STRATEGIES + ("pipeline",)
     ap.add_argument("--strategies", default=None,
                     help=f"comma-separated, of {known}: profile one rank of "
@@ -181,8 +198,8 @@ def main(argv=None):
         return
     step, state, batch = _warm_step(args.arch, ShardingCtx("cuda"))
     prof, host_s = _traced(step, state, batch, torch.device("cuda"), True)
-    report(f"{args.arch}_b{ORACLE_BATCH[args.arch]}_train_x{STEPS}", prof,
-           host_s, None)
+    report(f"{args.arch}_{_shape(args.arch)}_train_x{STEPS}", prof, host_s,
+           None)
 
 
 if __name__ == "__main__":

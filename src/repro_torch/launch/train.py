@@ -8,11 +8,17 @@
         -m repro_torch.launch.train --arch resnet50 --smoke --steps 2 \
         --batch 8 --device cpu --strategy pipeline --schedule one_f_one_b
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
+        --steps 3 --batch 2 --seq 512
+
 Trains the paper's CNNs (``--arch`` resnet50, resnet152, vgg16 or
-cosmoflow): builds the (smoke or full) model with weights drawn from
-``--seed``, the deterministic synthetic loader (images, or volumes for
-CosmoFlow) and the train step, and runs a plain loop on ``--device``
-(``cuda`` unless told otherwise; without CUDA it raises).
+cosmoflow) and, on one device, the LMs (qwen1.5-4b, mamba2-780m; ``--seq``
+tokens a sequence, the forward's query chunk min(256, seq), as the
+reference's trainer sets it): builds the (smoke or full) model with weights
+drawn from ``--seed``, the deterministic synthetic loader (images, volumes
+for CosmoFlow, the bigram token stream for the LMs) and the train step, and
+runs a plain loop on ``--device`` (``cuda`` unless told otherwise; without
+CUDA it raises).
 
 Under ``torchrun`` (its WORLD_SIZE in the environment) the ranks form a
 (data, model) mesh (``--model`` ranks on the model axis; the reference's
@@ -20,7 +26,9 @@ default split otherwise) over ``--backend`` (nccl: one rank per card; gloo:
 ranks sharing a card, or the CPU) and train under ``--strategy``, one of the
 CNN rule tables (data, spatial, filter, channel, df, ds): every rank draws
 the whole batch (``--batch`` is global) and keeps its block. Without a world
-it is the single-device trainer and ``--strategy`` is moot.
+it is the single-device trainer and ``--strategy`` is moot. An LM across
+ranks raises (its rows under the strategies are ROADMAP queue 1 item 6; its
+pipeline, item 8).
 
 ``--strategy pipeline`` is the paper's layer strategy
 (``parallel/schedules``): the ranks of the model axis (all of them unless
@@ -31,9 +39,11 @@ deployable S ≤ it and reports it), and the cuts come from the partitioner
 over the oracle's per-block costs. ``--accum > 1`` is refused there: the
 microbatches are the accumulation.
 
-Like the JAX trainer it trains without ``use_pallas``: the implicit-GEMM
-kernel has no backward yet. LM training, checkpointing, ``--strategy
-auto`` and ``--elastic`` are not ported (ROADMAP queue 1).
+Like the JAX trainer it trains without ``use_pallas``: none of the four
+kernels has a backward, in the JAX package or here, so the convs, norms,
+attention and SSD of a training step are their plain versions.
+Checkpointing, ``--strategy auto`` and ``--elastic`` are not ported
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ import torch.distributed as dist
 from ..configs import get_config
 from ..data.pipeline import DataConfig, Loader
 from ..models.cnn import CosmoFlowConfig, ResNetConfig, VGGConfig
+from ..models.transformer import LMConfig
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
 from ..parallel.schedules import SCHEDULE_NAMES, make_pipeline_train_step
@@ -59,7 +70,12 @@ from .mesh import init_from_env, make_host_mesh
 CNN_STRATEGIES = ("data", "spatial", "filter", "channel", "df", "ds")
 
 
-def data_config_for(mc, batch: int, seed: int = 0) -> DataConfig:
+def data_config_for(mc, batch: int, seq: int = 128,
+                    seed: int = 0) -> DataConfig:
+    """The data config of model config ``mc`` (``seq`` is read by LMs
+    only)."""
+    if isinstance(mc, LMConfig):
+        return DataConfig("lm", batch, seq_len=seq, vocab=mc.vocab, seed=seed)
     if isinstance(mc, (ResNetConfig, VGGConfig)):
         return DataConfig("image", batch, image=getattr(mc, "img", 224),
                           classes=mc.n_classes, seed=seed)
@@ -77,6 +93,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="tokens a sequence (LMs)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--log-every", type=int, default=10)
@@ -147,9 +165,12 @@ def _loop(args, ctx: ShardingCtx) -> dict:
                   flush=True)
     else:
         model = build_model(cfg, ctx, smoke=args.smoke, seed=args.seed)
-        step = make_train_step(model, opt, ctx, accum=args.accum)
+        fwd_kw = ({"q_chunk": min(256, args.seq)} if cfg.family == "lm"
+                  else {})
+        step = make_train_step(model, opt, ctx, accum=args.accum, **fwd_kw)
     state = train_state(model, opt)
-    loader = Loader(data_config_for(mc, args.batch, args.seed), ctx.device)
+    loader = Loader(data_config_for(mc, args.batch, args.seq, args.seed),
+                    ctx.device)
 
     losses, step_s = [], []
     t_start = time.perf_counter()

@@ -9,12 +9,14 @@ so the JAX tree's ``stacks.p.X[g]`` is the port's ``blocks.(g·period + p).X``
 (``bridge.py`` maps one onto the other). ``LMConfig`` holds only what
 Qwen1.5-4B and Mamba-2 780m set: the other block kinds ("local_attn",
 "mla", "moe", "rec") raise ``NotImplementedError`` at construction, and
-leading dense layers, multi-token prediction, learned positions, embedding
-scaling and a final softcap come with the slices that port them. With tied
+leading dense layers, multi-token prediction (``mtp_heads`` raises, ROADMAP
+queue 1 item 10), learned positions, embedding scaling and a final softcap
+come with the slices that port them. With tied
 embeddings the head is the embedding table, as in the reference.
 
 Entry points, as in the reference: ``forward`` (its ``apply``) → (logits,
-aux), ``prefill`` → (last-position logits, cache) and ``decode_step`` →
+aux), ``loss_fn`` → (masked next-token cross-entropy + aux, metrics),
+``prefill`` → (last-position logits, cache) and ``decode_step`` →
 (logits, cache), logits in fp32. A cache is ``{"blocks": [...]}`` with one
 entry per layer ({"k", "v"} for attention, {"state", "conv_x", "conv_B",
 "conv_C"} in fp32 for the SSM), made by ``zeros_like_spec(cache_spec(...))``
@@ -26,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..nn.attention import Attention, AttentionConfig
@@ -49,6 +52,7 @@ class LMConfig:
     ffn: FFNConfig | None = None
     ssm: SSMConfig | None = None
     tie_embeddings: bool = False
+    mtp_heads: int = 0               # multi-token prediction: not ported
     dtype: torch.dtype = torch.bfloat16
 
     def block_kinds(self) -> list[str]:
@@ -59,9 +63,13 @@ class LMConfig:
 
 def _fp32_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """h @ w with an fp32 result from operands in the model's dtype (the
-    reference's ``preferred_element_type=float32``): on the card one bf16
-    GEMM with an fp32 output, elsewhere the operands widened first."""
-    if h.is_cuda and h.dtype != torch.float32:
+    reference's ``preferred_element_type=float32``): without autograd on the
+    card, one bf16 GEMM with an fp32 output; elsewhere the operands widened
+    first. mm's ``out_dtype`` form has no derivative, so a training step
+    takes the widened product, whose backward is the reference's too: the
+    fp32 cotangent times the bf16 operand, exactly, rounded to bf16."""
+    if h.is_cuda and h.dtype != torch.float32 and \
+            not torch.is_grad_enabled():
         return torch.mm(h.flatten(0, -2), w, out_dtype=torch.float32
                         ).unflatten(0, h.shape[:-1])
     return h.float() @ w.float()
@@ -118,6 +126,10 @@ class TransformerLM(nn.Module):
                  generator: torch.Generator | None):
         super().__init__()
         self.cfg = c = cfg
+        if c.mtp_heads:
+            raise NotImplementedError(
+                "multi-token prediction (mtp_heads) is not ported: it comes "
+                "with its first model, ROADMAP queue 1 item 10")
         for kind in set(c.pattern):
             if kind not in KINDS:
                 raise ValueError(f"unknown block kind {kind!r}")
@@ -149,6 +161,25 @@ class TransformerLM(nn.Module):
             h = block(h, ctx, q_chunk, kv_chunk)
         return self._logits(h, ctx), torch.zeros((), device=h.device)
 
+    def loss_fn(self, batch: dict, ctx: ShardingCtx, q_chunk: int = 1024,
+                kv_chunk: int = 1024):
+        """Masked next-token cross-entropy in fp32, the reference's. batch:
+        ``tokens`` (B, S) int; optional ``targets`` (B, S) (default: the
+        tokens shifted left, 0 at the end) and ``mask`` (B, S) (default:
+        ones). Returns (loss + aux, {"ce", "aux"})."""
+        tokens = batch["tokens"]
+        targets = batch.get("targets")
+        if targets is None:
+            targets = F.pad(tokens[:, 1:], (0, 1))
+        logits, aux = self(tokens, ctx, q_chunk, kv_chunk)
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(tokens.shape, dtype=torch.float32,
+                              device=tokens.device)
+        ce = _xent(logits, targets)
+        loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return loss + aux, {"ce": loss, "aux": aux}
+
     def cache_spec(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         return {"blocks": [b.cache_spec(batch, max_len, dtype)
@@ -173,3 +204,11 @@ class TransformerLM(nn.Module):
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Token cross-entropy in fp32. logits: (B, S, V); targets: (B, S)."""
+    logits = logits.float()
+    picked = torch.take_along_dim(logits, targets[..., None].long(),
+                                  dim=-1)[..., 0]
+    return torch.logsumexp(logits, dim=-1) - picked

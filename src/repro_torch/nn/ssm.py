@@ -149,8 +149,14 @@ class SSDBlock(nn.Module):
         # intra-chunk (quadratic, attention-like)
         diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
         causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-        Lmask = torch.where(causal[None, None, :, :, None], torch.exp(diff),
-                            0.0)
+        # The reference takes where(causal, exp(diff), 0): exp of the upper
+        # triangle too, where diff = cum_i − cum_j > 0 grows with the chunk.
+        # At Mamba-2 780m's widths (A to −48, chunk 256) it overflows to inf,
+        # and the backward's 0·inf makes every gradient NaN (ROADMAP caveat
+        # m). Masking diff first gives the same values (exp(−inf) = 0) and
+        # finite gradients.
+        Lmask = torch.exp(diff.masked_fill(~causal[None, None, :, :, None],
+                                           float("-inf")))
         scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
         y_intra = torch.einsum("bcijh,bcjh,bcijh,bcjhp->bcihp",
                                scores, dtc, Lmask, xc)

@@ -1,2 +1,2 @@
-from .optimizers import (OptimizerConfig, apply_update, clip_by_global_norm,
+from .optimizers import (OptimizerConfig, apply_update, clip_scale,
                          global_norm, init_state)

@@ -1,13 +1,17 @@
 """Optimizers: SGD(+momentum) and AdamW (counterpart of
-``repro.optim.optimizers``; ZeRO-1 state sharding is not ported yet, ROADMAP
-queue 1).
+``repro.optim.optimizers``), for the CNNs and the LMs, on one device and
+across ranks; ZeRO-1 state sharding is not ported yet (ROADMAP queue 1
+item 6).
 
 State is a dict of fp32 tensors keyed by parameter name (``m``/``v`` for
 AdamW, ``mom`` for SGD). Unlike the JAX package's pure update, ``apply_update``
 writes the new parameters and state in place: that keeps one copy of each
 instead of two. The arithmetic is the reference's: clip to a global norm of
-``grad_clip`` first, bias correction with ``count = step + 1``. Across ranks
-the norm is over the whole model (``sharded_global_norm``): each parameter's
+``grad_clip`` first, bias correction with ``count = step + 1``. Each
+gradient is scaled to fp32 inside the update loop, one tensor at a time:
+the same numbers as the reference's ``clip_by_global_norm``, without an
+fp32 copy of every gradient at once (15.8 GB for Qwen1.5-4B's bf16
+gradients). Across ranks the norm is over the whole model (``sharded_global_norm``): each parameter's
 squares summed over its blocks, and a replicated parameter counted once.
 """
 from __future__ import annotations
@@ -68,13 +72,14 @@ def _copies(p: torch.Tensor, mesh) -> int:
     return n
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float,
-                        norm: torch.Tensor | None = None):
-    """fp32 grads scaled to a global norm of at most ``max_norm`` (``norm``:
-    the global norm where the caller computed it across ranks)."""
+def clip_scale(grads: dict[str, torch.Tensor], max_norm: float,
+               norm: torch.Tensor | None = None):
+    """(scale, norm): the factor that brings the gradients to a global norm
+    of at most ``max_norm`` (``norm``: the global norm where the caller
+    computed it across ranks)."""
     norm = global_norm(grads) if norm is None else norm
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: g.float() * scale for k, g in grads.items()}, norm
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
 
 
 @torch.no_grad()
@@ -84,14 +89,14 @@ def apply_update(opt: OptimizerConfig, params: dict[str, torch.Tensor],
     """Update ``params`` and ``state`` in place; returns the metrics.
     ``norm``: the global gradient norm, where the caller computed it across
     ranks (``sharded_global_norm``)."""
-    grads, gnorm = clip_by_global_norm(grads, opt.grad_clip, norm)
+    scale, gnorm = clip_scale(grads, opt.grad_clip, norm)
     count = float(step) + 1.0
 
     if opt.name == "adamw":
         b1, b2 = opt.b1, opt.b2
         c1, c2 = 1 - b1 ** count, 1 - b2 ** count
         for k, p in params.items():
-            g, m, v = grads[k], state["m"][k], state["v"][k]
+            g, m, v = grads[k].float() * scale, state["m"][k], state["v"][k]
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
             pf = p.float()
@@ -103,7 +108,7 @@ def apply_update(opt: OptimizerConfig, params: dict[str, torch.Tensor],
     if opt.name == "sgd":
         for k, p in params.items():
             mom = state["mom"][k]
-            mom.copy_(opt.momentum * mom + grads[k])
+            mom.copy_(opt.momentum * mom + grads[k].float() * scale)
             p.copy_(p.float() - opt.lr * mom)
         return {"grad_norm": gnorm}
 

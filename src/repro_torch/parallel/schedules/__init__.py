@@ -8,8 +8,8 @@ the paper's CNNs (counterpart of ``repro.parallel.schedules``).
   * ``train_step`` — the deployable step: the cuts, the schedule, the loss
     on the last stage and each stage's update of the blocks it owns.
 
-The reference's ``stages`` (stacked layouts for uniform LM trunks) comes
-with LM training (ROADMAP queue 1 item 4). ``repro_torch.parallel.pipeline``
+The reference's ``stages`` (stacked layouts for uniform LM trunks) is not
+ported yet (ROADMAP queue 1 item 8). ``repro_torch.parallel.pipeline``
 re-exports these names, as the reference's shim does.
 """
 from .hetero import (PipeBlock, boundary_shapes, model_pipe_blocks,

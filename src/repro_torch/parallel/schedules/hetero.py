@@ -41,8 +41,8 @@ from ...models.cnn import CNN_MODELS
 from ...models.transformer import LMConfig, TransformerLM
 from ...nn.module import ShardingCtx
 
-LM_PIPELINE = ("the LM pipeline (stacked and mixed patterns) comes with LM "
-               "training, ROADMAP queue 1 item 4")
+LM_PIPELINE = ("the LM pipeline (stacked and mixed patterns) is not ported "
+               "yet, ROADMAP queue 1 item 8")
 
 
 @dataclass(frozen=True)

@@ -35,7 +35,7 @@ data-parallel profile), which the paper's layer strategy does not have and
 the oracle does not price. The updated parameters are the same either way.
 
 The stacked-LM layouts (``stages.py``) and the mixed-LM path of the
-reference come with LM training (ROADMAP queue 1 item 4): an LM raises.
+reference are not ported yet (ROADMAP queue 1 item 8): an LM raises.
 """
 from __future__ import annotations
 

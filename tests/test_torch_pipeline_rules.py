@@ -312,11 +312,11 @@ def test_unknown_schedule_deep_pipes_bad_segments_and_the_lm_raise():
         SCHEDULES["interleaved"](program, 6)
     lm = TransformerLM(get_config("qwen1.5-4b").smoke_model, device=META,
                        generator=None)
-    assert "queue 1 item 4" in pipeline_supported(lm)
+    assert "queue 1 item 8" in pipeline_supported(lm)
     assert pipeline_supported(resnet) is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         make_pipeline_train_step(lm, opt, ctx)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         model_pipe_blocks(lm)
     with pytest.raises(SystemExit, match="--accum > 1"):
         train.main(["--arch", "resnet50", "--smoke", "--device", "cpu",

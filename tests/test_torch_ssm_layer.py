@@ -223,3 +223,37 @@ def test_config_and_parameters_match_jax():
                                   tree_abstract(jb.params_spec())))
     assert {k: f"{tuple(p.shape)} {str(p.dtype).removeprefix('torch.')}"
             for k, p in tb.named_parameters()} == leaves
+
+
+def test_gradients_match_jax_where_the_masked_exp_overflows():
+    """16 heads (A to −16) with dt ≈ 1 over a chunk of 128: the upper
+    triangle's cum_i − cum_j reaches ~2000, so exp overflows there, as it
+    does at Mamba-2 780m's widths. The reference's where(causal, exp(diff),
+    0) backs that inf through exp as 0·inf = NaN into the gradients of the
+    decay path (w_dt, dt_bias, a_log; in a whole model, through the
+    clipping norm, every update). The port masks diff before exp: the same
+    forward, finite gradients (ROADMAP caveat m). The forward and every
+    gradient the reference keeps finite against the reference's, at the
+    fp32 bar; the decay path's finite (its formula is held to the
+    reference's where nothing overflows, tests/test_torch_lm_train.py)."""
+    cfg = dict(d_state=16, head_dim=8, expand=2, chunk=128)
+    jb = JSSDBlock(JSSMConfig(64, **cfg))
+    params = tree_init(jb.params_spec(), jax.random.PRNGKey(0))
+    params["dt_bias"] = jnp.full_like(params["dt_bias"], 0.5413)  # dt ≈ 1
+    tb = SSDBlock(SSMConfig(64, **cfg), device=CPU, generator=None)
+    load_jax_params(tb, jax.tree.map(np.asarray, params))
+    u = _u(steps=128)
+    y_j, g_j = jax.value_and_grad(
+        lambda p: jb.apply(p, jnp.asarray(u), NULL_CTX).sum())(params)
+    y = tb(torch.from_numpy(u), ShardingCtx("cpu")).sum()
+    y.backward()
+    np.testing.assert_allclose(float(y.detach()), float(y_j), rtol=1e-4)
+    want = flatten(jax.tree.map(np.asarray, g_j))
+    nan_in_jax = {k for k, g in want.items() if not np.isfinite(g).all()}
+    assert nan_in_jax == {"w_dt", "dt_bias", "a_log"}
+    for name, p in tb.named_parameters():
+        assert torch.isfinite(p.grad).all(), name
+        if name not in nan_in_jax:
+            np.testing.assert_allclose(_np(p.grad), want[name], err_msg=name,
+                                       rtol=1e-4,
+                                       atol=1e-4 * np.abs(want[name]).max())
