@@ -85,6 +85,22 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              models under the cluster [parallel] calibrated, and the mean
              accuracy at p = 4 with and without it (gated on finiteness
              only).
+  5e. lm-parallel  the LMs under the paper's strategies on the same spawn
+             and (2, 2) mesh: Qwen1.5-4B at its published widths with 2 of
+             its 40 layers, fp32, batch 4 x 512, and Mamba-2 780m the same
+             way at batch 4 x 1024 (configs.lm_archs.LM_PARALLEL_SHAPE),
+             weights from seed 0. 2 SGD steps under data, spatial, filter,
+             channel, df and ds (the Qwen also df_zero1 and df_zero3): the
+             first loss, the first step's gradient norm and the second loss
+             against two single-process steps (computed first, released
+             before the spawn) within PAR_LOSS_TOL and PAR_STEP_TOL, with
+             the step ms and every rank's peak memory; Fig. 3's LM rows at
+             p = 4 (the Qwen, validate self-calibrated, as the reference's
+             check_oracle_validation: data, filter, channel, spatial, df,
+             ds and the mean; gated on finiteness only); the kernel
+             launches per rank (none: no kernel has a backward, so LM
+             training runs the plain norms, attention and SSD) and the
+             phase's wall time.
   6. serve   Qwen1.5-4B at full width in bf16, random weights from seed 0:
              a prompt pass over 4 prompts of 2048 tokens, then 32 greedy
              decode steps into a cache of 2080 positions, with use_pallas:
@@ -147,7 +163,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.cnn_archs import ORACLE_BATCH  # noqa: E402
-from repro_torch.configs.lm_archs import LM_TRAIN_SHAPE  # noqa: E402
+from repro_torch.configs.lm_archs import (LM_PARALLEL_SHAPE,  # noqa: E402
+                                          LM_TRAIN_SHAPE, lm_parallel_arch)
 from repro_torch.core.calibration import calibrate_host_system  # noqa: E402
 from repro_torch.core.cluster import ClusterSpec  # noqa: E402
 from repro_torch.core.hardware import cuda_device_model  # noqa: E402
@@ -319,6 +336,17 @@ PIPE_BUBBLE = ("resnet50", 2, 4, 8)
 PAR_ORACLE = (("resnet50", 16, ("data", "filter", "channel", "spatial",
                                 "df", "ds")),
               ("cosmoflow", ORACLE_BATCH["cosmoflow"], ("data", "spatial")))
+# The lm-parallel phase on the same spawn: (arch, rules tables), each model
+# at LM_PARALLEL_SHAPE (layers, global batch, seq), 2 SGD steps a table,
+# held against two single-process steps at the bars above (the CPU tests
+# read <= 1.5e-7 in the smoke LMs' losses and <= 1.3e-6 in their
+# gradients' relative L2); then Fig. 3's LM rows for LM_PAR_ORACLE.
+LM_PAR = (("qwen1.5-4b", ("data", "spatial", "filter", "channel", "df", "ds",
+                          "df_zero1", "df_zero3")),
+          ("mamba2-780m", ("data", "spatial", "filter", "channel", "df",
+                           "ds")))
+LM_PAR_ORACLE = ("qwen1.5-4b", ("data", "filter", "channel", "spatial", "df",
+                                "ds"))
 
 # (name, rows, D, dtype): the Qwen1.5-4B norms of a prompt pass (4 x 2048
 # tokens) and of a decode step (4 tokens), a prime row count, and the
@@ -1401,10 +1429,149 @@ def _parallel_rank(mesh, hbm_bw: float):
         del model, batch
         torch.cuda.empty_cache()
     out["pipeline"] = _pipeline_rank(mesh, cluster)
+    out["lm"] = _lm_parallel_rank(mesh)
     if mesh.rank == 0:
         return out
     return {"launches": out["launches"],
-            "pipeline": {"peaks": out["pipeline"]["peaks"]}}
+            "pipeline": {"peaks": out["pipeline"]["peaks"]},
+            "lm": {"peaks": out["lm"]["peaks"],
+                   "kernels": out["lm"]["kernels"]}}
+
+
+def _lm_batch(arch: str, dev) -> dict:
+    """The whole token batch of ``arch``'s lm-parallel cell (seed 0)."""
+    _, batch_size, seq = LM_PARALLEL_SHAPE[arch]
+    return Loader(train.data_config_for(lm_parallel_arch(arch).model,
+                                        batch_size, seq, seed=0),
+                  dev).batch_at(0)
+
+
+def _lm_parallel_rank(mesh) -> dict:
+    """One rank of the lm-parallel phase: per LM_PAR case the losses,
+    norms and step ms of 2 SGD steps and this rank's peak memory; Fig. 3's
+    LM rows; the kernel launches of the phase on this rank."""
+    from repro_torch.launch.build import shard_batch
+    from repro_torch.parallel.strategies import make_rules
+    t_phase = time.perf_counter()
+    dev = mesh.device
+    _reset_counts()
+    conv2d_gemm.launches = 0
+    out = {"train": {}, "peaks": {}}
+    for arch, strategies in LM_PAR:
+        cfg, seq = lm_parallel_arch(arch), LM_PARALLEL_SHAPE[arch][2]
+        whole = _lm_batch(arch, dev)
+        for s in strategies:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ctx = ShardingCtx(dev, mesh=mesh, rules=make_rules(s))
+            model = build_model(cfg, ctx, seed=0)
+            opt = OptimizerConfig(name="sgd", lr=3e-3, zero1="zero1" in s)
+            step = make_train_step(model, opt, ctx, q_chunk=min(256, seq))
+            state = train_state(model, opt, ctx)
+            batch = shard_batch(whole, ctx)
+            losses, norms, ms = [], [], []
+            for _ in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out["train"][arch, s] = (losses, norms, ms)
+            out["peaks"][arch, s] = torch.cuda.max_memory_allocated(dev)
+            del model, state, step, batch
+        del whole
+    torch.cuda.empty_cache()
+    arch, strategies = LM_PAR_ORACLE
+    cfg = lm_parallel_arch(arch)
+    _, batch_size, seq = LM_PARALLEL_SHAPE[arch]
+    model = build_model(cfg, ShardingCtx(dev), seed=0)
+    batch = _lm_batch(arch, dev)
+    fps = float(sum(st.flops_fwd for st in stats_for(cfg.model, seq)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pts = validate(model, cfg.model, batch, ShardingCtx(dev, mesh=mesh),
+                   list(strategies), flops_per_sample=fps, B=batch_size,
+                   S=seq)
+    out["fig3"] = (pts, time.perf_counter() - t0)
+    out["peaks"]["fig3"] = torch.cuda.max_memory_allocated(dev)
+    del model, batch
+    torch.cuda.empty_cache()
+    out["kernels"] = _counts() + (conv2d_gemm.launches,)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _lm_parallel_refs(dev) -> dict:
+    """Two single-process SGD steps per LM_PAR model at its lm-parallel
+    shape (first loss, first gradient norm, second loss), before the
+    spawn; every tensor released after."""
+    refs, ctx = {}, ShardingCtx(dev)
+    for arch, _ in LM_PAR:
+        seq = LM_PARALLEL_SHAPE[arch][2]
+        refs[arch] = _two_sgd_steps(lm_parallel_arch(arch), ctx,
+                                    _lm_batch(arch, dev),
+                                    q_chunk=min(256, seq))
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _report_lm_parallel(results, refs, seconds):
+    """Prints and gates the lm-parallel phase (see the module docstring,
+    5e)."""
+    r0 = results[0]["lm"]
+    print(f"[lm-parallel] mesh (data={PAR_RANKS // PAR_MODEL}, "
+          f"model={PAR_MODEL}), the [parallel] spawn's ranks sharing the "
+          f"card over gloo; "
+          + "; ".join(f"{a}: {l} layers at full width, fp32, batch {b} x "
+                      f"seq {q}" for a, (l, b, q) in LM_PARALLEL_SHAPE.items()),
+          flush=True)
+    bars = (PAR_LOSS_TOL, PAR_STEP_TOL, PAR_STEP_TOL)
+    for (arch, s), (losses, norms, ms) in r0["train"].items():
+        got = (losses[0], norms[0], losses[1])
+        want = refs[arch]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        peaks = [r["lm"]["peaks"][arch, s] / 2 ** 30 for r in results]
+        print(f"[lm-parallel] train {arch} {s} losses="
+              f"{','.join(f'{v:.7g}' for v in losses)} grad_norm_step1="
+              f"{norms[0]:.7g} single_process: loss1={want[0]:.7g} "
+              f"grad_norm1={want[1]:.7g} loss2={want[2]:.7g} rel_diff: "
+              f"loss1={rel[0]:.3g} (bar {bars[0]}) grad_norm1={rel[1]:.3g} "
+              f"loss2={rel[2]:.3g} (bar {bars[1]}) step_ms="
+              f"{','.join(f'{v:.5g}' for v in ms)} peak_GiB_per_rank="
+              f"{','.join(f'{v:.4g}' for v in peaks)}", flush=True)
+        if not all(math.isfinite(v) for v in got) or any(
+                r > bar for r, bar in zip(rel, bars)):
+            fail(f"[lm-parallel] {arch} {s}: (loss1, grad_norm1, loss2) "
+                 f"{got} against the single-process {want}: {rel} relative "
+                 f"(bars {bars})")
+    arch, _ = LM_PAR_ORACLE
+    pts, t_val = r0["fig3"]
+    _, batch_size, seq = LM_PARALLEL_SHAPE[arch]
+    tag = f"[lm-parallel] fig3 p={PAR_RANKS} {arch} batch={batch_size} " \
+          f"seq={seq}"
+    lines = accuracy_report(pts).splitlines()
+    print(f"{tag} self-calibrated ({t_val:.4g} s) {lines[0]}", flush=True)
+    for line in lines[1:]:
+        print(f"{tag} {line}", flush=True)
+    for pt in pts:
+        if not all(math.isfinite(t) and t > 0 for t in (
+                pt.measured_s, pt.projected_s, pt.projected_serial_s)):
+            fail(f"[lm-parallel] {arch} {pt.strategy}: measured "
+                 f"{pt.measured_s} s, projected {pt.projected_s} s")
+    peaks = [r["lm"]["peaks"]["fig3"] / 2 ** 30 for r in results]
+    print(f"{tag} mean accuracy {statistics.mean(pt.accuracy for pt in pts) * 100:.4g}% "
+          f"(serial-comm "
+          f"{statistics.mean(pt.accuracy_serial for pt in pts) * 100:.4g}%; "
+          f"reported, not gated) peak_GiB_per_rank="
+          f"{','.join(f'{v:.4g}' for v in peaks)}", flush=True)
+    print(f"[lm-parallel] kernel launches per rank (rmsnorm, "
+          f"flash_attention, ssd_chunk, conv2d_gemm): "
+          f"{[r['lm']['kernels'] for r in results]} (LM training runs the "
+          f"plain norms, attention and SSD: no kernel has a backward)",
+          flush=True)
+    print(f"[lm-parallel] phase wall time {seconds:.4g} s (single-process "
+          f"references and the spawn's lm-parallel part)", flush=True)
 
 
 def _pipeline_rank(mesh22, cluster) -> dict:
@@ -1474,13 +1641,13 @@ def _pipeline_rank(mesh22, cluster) -> dict:
     return out
 
 
-def _two_sgd_steps(cfg, ctx, batch, accum: int = 1) -> tuple:
+def _two_sgd_steps(cfg, ctx, batch, accum: int = 1, **fwd_kw) -> tuple:
     """Two SGD steps of a model from seed 0 (``accum`` microbatches a
     step): (first loss, the first step's gradient norm before clipping,
     second loss)."""
     model = build_model(cfg, ctx, seed=0)
     opt = OptimizerConfig(name="sgd", lr=3e-3)
-    step = make_train_step(model, opt, ctx, accum=accum)
+    step = make_train_step(model, opt, ctx, accum=accum, **fwd_kw)
     state = train_state(model, opt)
     state, m0 = step(state, batch)
     state, m1 = step(state, batch)
@@ -1526,6 +1693,9 @@ def phase_parallel(dev, hbm_bw: float) -> int:
     t_ref = time.perf_counter() - t_phase
     refs["pipe"] = _pipeline_refs(dev)
     t_pipe_ref = time.perf_counter() - t_phase - t_ref
+    t0 = time.perf_counter()
+    refs["lm"] = _lm_parallel_refs(dev)
+    t_lm_ref = time.perf_counter() - t0
     from repro_torch.launch.spawn import run_ranks
     results = run_ranks(_parallel_rank, PAR_RANKS, hbm_bw, backend="gloo",
                         device="cuda", model=PAR_MODEL, timeout_s=900)
@@ -1610,11 +1780,14 @@ def phase_parallel(dev, hbm_bw: float) -> int:
           f"(serial-comm {statistics.mean(pt.accuracy_serial for pt in rows) * 100:.4g}%; "
           f"{note}; reported, not gated)", flush=True)
     t_pipe = t_pipe_ref + r0["pipeline"]["seconds"]
+    t_lm = t_lm_ref + r0["lm"]["seconds"]
     print(f"[parallel] phase wall time "
-          f"{time.perf_counter() - t_phase - t_pipe:.4g} s (the pipeline "
-          f"phase's part excluded)", flush=True)
+          f"{time.perf_counter() - t_phase - t_pipe - t_lm:.4g} s (the "
+          f"pipeline and lm-parallel phases' parts excluded)", flush=True)
     _report_pipeline(results, refs["pipe"], rows, note, t_pipe, cluster)
+    _report_lm_parallel(results, refs["lm"], t_lm)
     return total
+
 
 
 def _pipeline_refs(dev) -> dict:

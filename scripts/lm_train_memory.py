@@ -14,6 +14,21 @@ layers × (one layer) + the head: an estimate of the activation memory at
 the end of the forward, beside the parameters' bytes and AdamW's fp32
 moments. A CPU reckoning from shapes, not a device measurement; the
 lm-train phase of chip_smoke.py prints the card's peak beside it.
+
+    PYTHONPATH=src python scripts/lm_train_memory.py --arch qwen1.5-4b \
+        --strategies data,spatial,filter,channel,df,ds,df_zero1,df_zero3
+
+With ``--strategies``: the model and shape of chip_smoke.py's
+lm-parallel phase (``configs.lm_archs.LM_PARALLEL_SHAPE``: the published
+widths cut to 2 layers, fp32, 4 ranks on a (2, 2) mesh) under each rules
+table, one rank's share: the bytes of its parameter blocks, of their
+gradients and SGD momentum (ZeRO-1's blocks under df_zero1), and of what
+the sharded loss's forward saves for the backward beyond those blocks
+(gathered weights and activations), reckoned on ``meta``
+with a stand-in mesh (the collectives only give shapes there). The
+collectives' buffers are transient and not counted; nor are the
+backward's temporaries (the logits' gradient is as large as the logits)
+or the update's (one parameter-sized temporary at a time).
 """
 from __future__ import annotations
 
@@ -27,21 +42,31 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.lm_archs import (LM_PARALLEL_SHAPE,  # noqa: E402
+                                          lm_parallel_arch)
+from repro_torch.launch.mesh import Group  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.nn.module import ShardingCtx  # noqa: E402
+from repro_torch.optim.optimizers import (OptimizerConfig,  # noqa: E402
+                                          init_state)
+from repro_torch.parallel.sharded import Sharded, placement  # noqa: E402
+from repro_torch.parallel.sharded import shard_params  # noqa: E402
+from repro_torch.parallel.strategies import make_rules  # noqa: E402
 
 META = torch.device("meta")
 
 
-def saved_bytes(fn) -> tuple[int, dict]:
-    """Bytes of the distinct storages autograd saves while ``fn`` runs,
-    and {(shape, dtype): bytes} of each."""
+def saved_bytes(fn, skip=()) -> tuple[int, dict]:
+    """Bytes of the distinct storages autograd saves while ``fn`` runs
+    (but those of the tensors ``skip``), and {(shape, dtype): bytes} of
+    each."""
     seen: dict[int, tuple] = {}
     keep = []                       # keeps each storage (and its id) alive
+    skipped = {t.untyped_storage()._cdata for t in skip}
 
     def pack(t):
         st = t.untyped_storage()
-        if st._cdata not in seen:
+        if st._cdata not in seen and st._cdata not in skipped:
             seen[st._cdata] = ((tuple(t.shape), t.dtype), st.nbytes())
             keep.append(st)
         return t
@@ -51,13 +76,68 @@ def saved_bytes(fn) -> tuple[int, dict]:
     return sum(b for _, b in seen.values()), dict(seen.values())
 
 
+class MetaMesh:
+    """Rank 0 of a (data, model) mesh of ranks that do not exist: what the
+    layers read of a mesh, for a forward on ``meta``."""
+
+    def __init__(self, data: int, model: int):
+        self.shape = {"data": data, "model": model}
+        self.size, self.rank = data * model, 0
+        self.device = self.host_device = torch.device("cpu")
+
+    def coord(self, axis: str) -> int:
+        return 0
+
+    def group(self, axes) -> Group:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n = 1
+        for a in axes:
+            n *= self.shape[a]
+        return Group(None, tuple(range(n)), 0, False)
+
+
+def rank_bytes(arch: str, strategy: str, mesh: MetaMesh) -> dict:
+    """One rank's bytes under ``strategy`` at LM_PARALLEL_SHAPE."""
+    _, batch, seq = LM_PARALLEL_SHAPE[arch]
+    ctx = ShardingCtx("cpu", mesh=mesh, rules=make_rules(strategy))
+    model = shard_params(TransformerLM(lm_parallel_arch(arch).model,
+                                       device=META, generator=None), ctx)
+    params = dict(model.named_parameters())
+    state = init_state(OptimizerConfig(name="sgd", zero1="zero1" in strategy),
+                       params, ctx)
+    tokens = torch.zeros((batch, seq), dtype=torch.int32, device=META)
+    tokens = Sharded.of(tokens, placement(mesh, ctx.pspec(
+        ("batch", None), tokens.shape)), mesh)
+    saved, _ = saved_bytes(lambda: model.loss_fn(
+        {"tokens": tokens}, ctx, q_chunk=min(256, seq)), params.values())
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    return {"weights": nbytes, "grads": nbytes,
+            "momentum": sum(t.numel() * 4 for t in state["mom"].values()),
+            "saved": saved}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-4b",
                     choices=["qwen1.5-4b", "mamba2-780m"])
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--strategies", default=None,
+                    help="comma-separated rules tables: one rank's bytes "
+                         "at the lm-parallel shape under each")
     args = ap.parse_args(argv)
+    if args.strategies:
+        layers, batch, seq = LM_PARALLEL_SHAPE[args.arch]
+        mesh = MetaMesh(2, 2)
+        print(f"{args.arch} {layers} layers fp32 batch={batch} seq={seq}, "
+              f"one rank of a (2, 2) mesh, GB:")
+        for s in args.strategies.split(","):
+            b = rank_bytes(args.arch, s, mesh)
+            total = sum(b.values())
+            print(f"  {s:9s} " + " ".join(
+                f"{k}={v / 1e9:.4g}" for k, v in b.items())
+                + f" sum={total / 1e9:.4g} (x4 ranks {4 * total / 1e9:.4g})")
+        return
     full = get_config(args.arch).model
     model = TransformerLM(dataclasses.replace(full, n_layers=1), device=META,
                           generator=None)

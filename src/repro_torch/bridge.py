@@ -13,7 +13,7 @@ dtype raises, so a parity test cannot run on a partly filled model. A model
 on the ``meta`` device is checked, not filled. A model whose parameters are
 one rank's blocks (``parallel.sharded.shard_params``) is checked against the
 whole leaves and takes each leaf's block (``p.shard_index``); so are the
-optimizer moments of its train state.
+optimizer moments of its train state (ZeRO-1's moments their own blocks).
 
 ``cache_from_jax`` turns the reference's LM cache or paged pool (its
 layers stacked, ``stacks/p/k`` of (G, ...)) into the port's per-layer list
@@ -75,6 +75,13 @@ def _whole_shape(t: torch.Tensor) -> tuple:
     return tuple(getattr(t, "global_shape", t.shape))
 
 
+def _index(t: torch.Tensor, block: torch.Tensor):
+    """The slices of the whole leaf that ``t`` holds: its own
+    ``shard_index``, else that of the parameter it shares a placement
+    with."""
+    return getattr(t, "shard_index", getattr(block, "shard_index", ...))
+
+
 @torch.no_grad()
 def _copy_into(targets: dict[str, torch.Tensor], tree, what: str,
                blocks: dict[str, torch.Tensor] | None = None) -> None:
@@ -97,7 +104,7 @@ def _copy_into(targets: dict[str, torch.Tensor], tree, what: str,
             raise ValueError(f"{what} leaf {k}: dtype {dtype} != {t.dtype}")
         if t.device.type != "meta":
             whole = _to_tensor(leaves[k])
-            t.copy_(whole[getattr(blocks[k], "shard_index", ...)])
+            t.copy_(whole[_index(t, blocks[k])])
 
 
 def load_jax_params(model: torch.nn.Module, tree) -> None:

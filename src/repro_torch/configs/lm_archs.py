@@ -3,13 +3,15 @@ field by field: Mamba-2 780m (SSD blocks) and Qwen1.5-4B (attention
 blocks). The other LMs register with the slices that port their blocks."""
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models.transformer import LMConfig
 from ..nn.attention import AttentionConfig
 from ..nn.ffn import FFNConfig
 from ..nn.ssm import SSMConfig
-from .base import ArchConfig, register
+from .base import ArchConfig, get_config, register
 
 BF16 = torch.bfloat16
 
@@ -19,6 +21,28 @@ BF16 = torch.bfloat16
 # backward at 4 x 1024 tokens, ~98 GB over 48 layers, more than an 80 GB
 # card holds, and ~1.0 GB a layer at 2 x 1024 (scripts/lm_train_memory.py).
 LM_TRAIN_SHAPE = {"qwen1.5-4b": (2, 512), "mamba2-780m": (2, 1024)}
+
+# The LMs across 4 ranks sharing one card (chip_smoke.py's lm-parallel
+# phase, launch.profile_train --strategies, scripts/lm_train_memory.py
+# --strategies): (layers, global batch, seq) at the published widths, in
+# fp32 (as the reference's own LM checks run). The layers are cut for
+# memory: under "data" every rank holds the whole model, its fp32
+# gradients and SGD momentum, 12 B a parameter; Qwen1.5-4B's 3.95 B would
+# need 47 GB a rank, while 2 layers hold 0.94 B (its embedding and head,
+# 389 M each, dominate).
+LM_PARALLEL_SHAPE = {"qwen1.5-4b": (2, 4, 512), "mamba2-780m": (2, 4, 1024)}
+
+
+def lm_parallel_arch(arch: str) -> ArchConfig:
+    """``arch`` with its full model cut to LM_PARALLEL_SHAPE's layers and
+    every dtype fp32."""
+    cfg = get_config(arch)
+    mc = cfg.model
+    sub = {k: dataclasses.replace(getattr(mc, k), dtype=torch.float32)
+           for k in ("attn", "ffn", "ssm") if getattr(mc, k) is not None}
+    mc = dataclasses.replace(mc, n_layers=LM_PARALLEL_SHAPE[arch][0],
+                             dtype=torch.float32, **sub)
+    return dataclasses.replace(cfg, model=mc)
 
 
 # mamba2-780m — SSD, attention-free [arXiv:2405.21060; unverified]

@@ -9,7 +9,9 @@ paper's accuracy metric:
 
 One device (no mesh) runs "data" at p = 1, a plain train step. On a mesh of
 p ranks (``ShardingCtx.mesh``) "data", "filter", "channel", "spatial", "df"
-and "ds" run as the rules tables of ``EXEC_STRATEGY``; as in the reference,
+and "ds" run as the rules tables of ``EXEC_STRATEGY``, for the CNNs and the
+LMs (an LM's layer stats at the ``S`` tokens a sequence of its batch); as
+in the reference,
 "spatial" is measured under the "ds" rules on the whole (data, model) mesh
 but projected as pure spatial parallelism at p. "pipeline" runs the stage
 executor (``parallel/schedules``) with all p ranks as stages of a (1, p)
@@ -152,10 +154,11 @@ def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
 
 
 def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
-             flops_per_sample: float, B: int,
+             flops_per_sample: float, B: int, S: int = 128,
              cluster=None) -> list[ValidationPoint]:
     """Measure + project each strategy at p = the mesh's rank count (1
-    without one) on ``ctx.device``; paper Fig. 3.
+    without one) on ``ctx.device``; paper Fig. 3. ``S``: an LM's tokens a
+    sequence, for its layer stats (a CNN's ignore it).
 
     ``model`` and ``batch`` are whole (on every rank, the same).
     "pipeline" is skipped, with the reason printed, where the executor
@@ -168,7 +171,7 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
     ``model`` itself (``calibrate_host_system``, with α/β per mesh axis),
     the reference's default; ranks that timeshare a device (a mesh on one
     card, or the CPU) get 1/p of its measured rate, as in the reference."""
-    stats = stats_for(model_cfg)
+    stats = stats_for(model_cfg, S)
     p = ctx.mesh.size if ctx.sharded else 1
     if cluster is None:
         whole = ShardingCtx(ctx.device, ctx.use_pallas)

@@ -1,5 +1,6 @@
 """Model construction and the batch's placement (counterparts of
-``repro.launch.build.build_model`` and ``cnn_batch_specs``; the dry-run's
+``repro.launch.build.build_model``, ``cnn_batch_specs`` and
+``batch_specs``' LM leaves; the dry-run's
 cells and abstract inputs are not ported, ROADMAP queue 1 item 12).
 
 CNN weights are drawn on the host and moved, so one seed gives the same
@@ -8,10 +9,13 @@ config's dtype, from a generator on that device: the full Qwen1.5-4B holds
 3,950,369,280 parameters (7.9 GB in bf16), which a host draw in fp32 would
 take tens of seconds and 16 GB to make.
 
-Across ranks (``ctx.sharded``) every rank builds the whole CNN from the same
-seed and keeps its blocks (``shard_params``), and draws the same whole batch
-from the seeded stream and keeps its ("batch", "spatial") block
-(``shard_batch``).
+Across ranks (``ctx.sharded``) every rank builds the whole model from the
+same seed and keeps its blocks (``shard_params``): a CNN from a host
+generator, an LM from a generator on its device (one seed gives the same
+weights on every rank of a card, and on cards of one kind). Every rank
+draws the same whole batch from the seeded stream and keeps its block
+(``shard_batch``): a CNN's images on ("batch", "spatial"), an LM's tokens
+(and targets and mask) on ("batch", None), as ``batch_specs`` places them.
 """
 from __future__ import annotations
 
@@ -34,29 +38,27 @@ def build_model(cfg: ArchConfig, ctx: ShardingCtx, smoke: bool = False,
     if type(mc) in cnns:
         model = cnns[type(mc)](mc, device=ctx.device,
                                generator=torch.Generator().manual_seed(seed))
-        return shard_params(model, ctx) if ctx.sharded else model
-    if ctx.sharded:
-        raise NotImplementedError(
-            f"{type(mc).__name__} across ranks is not ported: the LMs run on "
-            f"one device (the LM rows under the strategies are ROADMAP "
-            f"queue 1 item 6)")
-    if isinstance(mc, LMConfig):
+    elif isinstance(mc, LMConfig):
         gen = torch.Generator(device=ctx.device).manual_seed(seed)
-        return TransformerLM(mc, device=ctx.device, generator=gen)
-    raise TypeError(f"{type(mc).__name__} is not ported yet")
+        model = TransformerLM(mc, device=ctx.device, generator=gen)
+    else:
+        raise TypeError(f"{type(mc).__name__} is not ported yet")
+    return shard_params(model, ctx) if ctx.sharded else model
 
 
 def batch_axes(name: str, ndim: int) -> tuple:
-    """The logical axes of a CNN batch leaf: the images (batch, spatial,
-    ...), labels (batch,), targets (batch, None), as ``cnn_batch_specs``."""
+    """The logical axes of a batch leaf: a CNN's images (batch, spatial,
+    ...), labels (batch,) and targets (batch, None), as
+    ``cnn_batch_specs``; an LM's tokens, targets and mask (batch, None), as
+    ``batch_specs``."""
     if name == "images":
         return ("batch", "spatial") + (None,) * (ndim - 2)
     return ("batch",) + (None,) * (ndim - 1)
 
 
 def shard_batch(batch: dict, ctx: ShardingCtx) -> dict:
-    """This rank's blocks of a whole CNN batch that every rank holds, placed
-    by the rules (the batch as it is where nothing is sharded)."""
+    """This rank's blocks of a whole batch that every rank holds, placed by
+    the rules (the batch as it is where nothing is sharded)."""
     if not ctx.sharded:
         return batch
     return {k: Sharded.of(v, placement(ctx.mesh, ctx.pspec(

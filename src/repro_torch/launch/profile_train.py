@@ -3,7 +3,8 @@ sharded CNN step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         [--arch resnet50|resnet152|vgg16|cosmoflow|qwen1.5-4b|mamba2-780m]
-        [--strategies data,ds]
+        [--strategies data,ds]   (an LM: data,spatial,filter,channel,df,
+                                  ds,df_zero1,df_zero3)
         [--strategies pipeline --schedule gpipe|one_f_one_b|interleaved]
 
 Builds the CNN at its full config (fp32, TF32 off, random weights from seed
@@ -13,8 +14,9 @@ with ``torch.profiler`` (CPU and CUDA activities). The batch is the model's
 ``configs.cnn_archs.ORACLE_BATCH``, as in ``chip_smoke.py``'s oracle phase.
 An LM (bf16, full width) takes the trainer's AdamW step at its
 ``configs.lm_archs.LM_TRAIN_SHAPE`` (batch, seq), as in ``chip_smoke.py``'s
-lm-train phase, on one device. Imports nothing of jax or of the JAX
-package; needs CUDA.
+lm-train phase, on one device; across ranks, the SGD step of the
+lm-parallel phase (``LM_PARALLEL_SHAPE``: full widths, 2 layers, fp32).
+Imports nothing of jax or of the JAX package; needs CUDA.
 
 Without ``--strategies``: one process on the card. Prints, as
 ``profile_serve`` does, the host time, the summed device time of the
@@ -46,7 +48,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..configs.cnn_archs import ORACLE_BATCH
-from ..configs.lm_archs import LM_TRAIN_SHAPE
+from ..configs.lm_archs import (LM_PARALLEL_SHAPE, LM_TRAIN_SHAPE,
+                                lm_parallel_arch)
 from ..data.pipeline import Loader
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
@@ -56,7 +59,7 @@ from ..training.steps import make_train_step, train_state
 from .build import build_model, shard_batch
 from .profile_serve import report
 from .spawn import run_ranks
-from .train import CNN_STRATEGIES, data_config_for
+from .train import CNN_STRATEGIES, LM_STRATEGIES, data_config_for
 
 STEPS = 2
 RANKS, MODEL_AXIS = 4, 2
@@ -66,19 +69,27 @@ ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 _SPANS = ("comm.", "gloo:", "nccl:", "record_param_comms")
 
 
-def _shape(arch: str) -> str:
+def _shape(arch: str, sharded: bool = False) -> str:
     if arch in LM_TRAIN_SHAPE:
+        if sharded:
+            return "l{}_b{}_s{}_fp32".format(*LM_PARALLEL_SHAPE[arch])
         return "b{}_s{}".format(*LM_TRAIN_SHAPE[arch])
     return f"b{ORACLE_BATCH[arch]}"
 
 
-def _warm_step(arch: str, ctx: ShardingCtx, schedule: str | None = None):
+def _warm_step(arch: str, ctx: ShardingCtx, schedule: str | None = None,
+               zero1: bool = False):
     """The SGD step of CNN ``arch`` at its oracle batch under ``ctx`` (with
     a ``schedule``: the pipeline step over ``ctx.mesh``'s model axis), or
-    an LM's AdamW step at its LM_TRAIN_SHAPE, after 2 warm-up steps:
-    (step, state, batch)."""
+    an LM's AdamW step at its LM_TRAIN_SHAPE (across ranks, its SGD step
+    at LM_PARALLEL_SHAPE), after 2 warm-up steps: (step, state, batch)."""
     cfg = get_config(arch)
-    if arch in LM_TRAIN_SHAPE:
+    if arch in LM_TRAIN_SHAPE and ctx.sharded:
+        cfg = lm_parallel_arch(arch)
+        _, size, seq = LM_PARALLEL_SHAPE[arch]
+        opt = OptimizerConfig(name="sgd", zero1=zero1)
+        fwd_kw = {"q_chunk": min(256, seq)}
+    elif arch in LM_TRAIN_SHAPE:
         size, seq = LM_TRAIN_SHAPE[arch]
         opt, fwd_kw = OptimizerConfig(), {"q_chunk": min(256, seq)}
     else:
@@ -94,7 +105,7 @@ def _warm_step(arch: str, ctx: ShardingCtx, schedule: str | None = None):
     else:
         model = build_model(cfg, ShardingCtx(ctx.device), seed=0)
         step = make_pipeline_train_step(model, opt, ctx, schedule=schedule)
-    state = train_state(model, opt)
+    state = train_state(model, opt, ctx)
     for _ in range(2):
         state, _ = step(state, batch)
     torch.cuda.synchronize(ctx.device)
@@ -148,7 +159,7 @@ def _rank(mesh, arch: str, strategies: tuple, schedule: str) -> dict:
         ctx = ShardingCtx(mesh.device, mesh=mesh.regrid(1, RANKS) if pipe
                           else mesh, rules=make_rules(s))
         step, state, batch = _warm_step(arch, ctx, schedule if pipe
-                                        else None)
+                                        else None, zero1=s == "df_zero1")
         prof, host_s = _traced(step, state, batch, mesh.device,
                                mesh.rank == 0)
         if mesh.rank == 0:
@@ -160,7 +171,7 @@ def _rank(mesh, arch: str, strategies: tuple, schedule: str) -> dict:
 
 def _report_sharded(arch: str, res: dict) -> None:
     for s, r in res.items():
-        name = f"{arch}_{_shape(arch)}_{s}_p{RANKS}"
+        name = f"{arch}_{_shape(arch, sharded=True)}_{s}_p{RANKS}"
         comm = sum(r["comm_host_ms"].values())
         print(f"[profile] {name}: host_ms_per_step={r['host_ms']:.6g} "
               f"rank0_kernel_ms={r['kernel_ms']:.6g} "
@@ -177,16 +188,18 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="cosmoflow",
                     choices=list(ORACLE_BATCH) + list(LM_TRAIN_SHAPE))
-    known = CNN_STRATEGIES + ("pipeline",)
     ap.add_argument("--strategies", default=None,
-                    help=f"comma-separated, of {known}: profile one rank of "
-                         f"{RANKS} sharing the card")
+                    help=f"comma-separated rules tables (or pipeline, for "
+                         f"a CNN): profile one rank of {RANKS} sharing the "
+                         f"card")
     ap.add_argument("--schedule", default="gpipe", choices=SCHEDULE_NAMES,
                     help="the pipeline's schedule")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     if args.strategies:
+        known = (LM_STRATEGIES if args.arch in LM_TRAIN_SHAPE else
+                 CNN_STRATEGIES + ("pipeline",))
         strategies = tuple(args.strategies.split(","))
         for s in strategies:
             if s not in known:

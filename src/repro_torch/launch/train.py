@@ -10,11 +10,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
         --steps 3 --batch 2 --seq 512
+    PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen1.5-4b --smoke --steps 2 \
+        --batch 8 --seq 32 --device cpu --strategy df_zero1
 
 Trains the paper's CNNs (``--arch`` resnet50, resnet152, vgg16 or
-cosmoflow) and, on one device, the LMs (qwen1.5-4b, mamba2-780m; ``--seq``
-tokens a sequence, the forward's query chunk min(256, seq), as the
-reference's trainer sets it): builds the (smoke or full) model with weights
+cosmoflow) and the LMs (qwen1.5-4b, mamba2-780m; ``--seq`` tokens a
+sequence, the forward's query chunk min(256, seq), as the reference's
+trainer sets it): builds the (smoke or full) model with weights
 drawn from ``--seed``, the deterministic synthetic loader (images, volumes
 for CosmoFlow, the bigram token stream for the LMs) and the train step, and
 runs a plain loop on ``--device`` (``cuda`` unless told otherwise; without
@@ -24,11 +27,12 @@ Under ``torchrun`` (its WORLD_SIZE in the environment) the ranks form a
 (data, model) mesh (``--model`` ranks on the model axis; the reference's
 default split otherwise) over ``--backend`` (nccl: one rank per card; gloo:
 ranks sharing a card, or the CPU) and train under ``--strategy``, one of the
-CNN rule tables (data, spatial, filter, channel, df, ds): every rank draws
-the whole batch (``--batch`` is global) and keeps its block. Without a world
-it is the single-device trainer and ``--strategy`` is moot. An LM across
-ranks raises (its rows under the strategies are ROADMAP queue 1 item 6; its
-pipeline, item 8).
+paper's rule tables (data, spatial, filter, channel, df, ds) or, for an LM,
+df with ZeRO-1 (``df_zero1``: the optimizer state split over "data") or
+ZeRO-3 (``df_zero3``: the parameters too): every rank draws the whole batch
+(``--batch`` is global) and keeps its block. On a card each rank prints its
+peak memory at the end. Without a world it is the single-device trainer and
+``--strategy`` is moot. An LM's pipeline raises (ROADMAP queue 1 item 8).
 
 ``--strategy pipeline`` is the paper's layer strategy
 (``parallel/schedules``): the ranks of the model axis (all of them unless
@@ -66,8 +70,9 @@ from ..training.steps import make_train_step, train_state
 from .build import build_model, shard_batch
 from .mesh import init_from_env, make_host_mesh
 
-# the rule tables the CNNs run under (the others raise)
+# the rule tables the CNNs run under, and the LMs (the others raise)
 CNN_STRATEGIES = ("data", "spatial", "filter", "channel", "df", "ds")
+LM_STRATEGIES = CNN_STRATEGIES + ("df_zero1", "df_zero3")
 
 
 def data_config_for(mc, batch: int, seq: int = 128,
@@ -102,7 +107,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'; there is no fallback")
     ap.add_argument("--strategy", default="df",
-                    choices=CNN_STRATEGIES + ("pipeline",),
+                    choices=LM_STRATEGIES + ("pipeline",),
                     help="rules table, or 'pipeline', under torchrun (moot "
                          "on one device)")
     ap.add_argument("--schedule", default="gpipe", choices=SCHEDULE_NAMES,
@@ -125,9 +130,12 @@ def main(argv=None) -> dict:
                          "accumulation schedule)")
 
     world = "WORLD_SIZE" in os.environ
+    # a caller that has initialised the world (launch.spawn) keeps it
+    own = world and not dist.is_initialized()
     if world:
         backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
-        init_from_env(backend)
+        if own:
+            init_from_env(backend)
         model_axis = args.model_axis
         if args.strategy == "pipeline" and model_axis is None:
             model_axis = dist.get_world_size()
@@ -140,7 +148,7 @@ def main(argv=None) -> dict:
     try:
         return _loop(args, ctx)
     finally:
-        if world:
+        if own:
             dist.destroy_process_group()
 
 
@@ -149,7 +157,11 @@ def _loop(args, ctx: ShardingCtx) -> dict:
     cfg = get_config(args.arch)
     mc = cfg.smoke_model if args.smoke else cfg.model
     pipe = ctx.sharded and args.strategy == "pipeline"
-    opt = OptimizerConfig(lr=args.lr)
+    if ctx.sharded and not pipe and args.strategy not in (
+            LM_STRATEGIES if isinstance(mc, LMConfig) else CNN_STRATEGIES):
+        raise SystemExit(f"--strategy {args.strategy}: the CNNs run under "
+                         f"{CNN_STRATEGIES}, the LMs under {LM_STRATEGIES}")
+    opt = OptimizerConfig(lr=args.lr, zero1="zero1" in args.strategy)
     if pipe:
         # every rank holds the whole model and updates the blocks it owns
         model = build_model(cfg, ShardingCtx(ctx.device), smoke=args.smoke,
@@ -168,7 +180,7 @@ def _loop(args, ctx: ShardingCtx) -> dict:
         fwd_kw = ({"q_chunk": min(256, args.seq)} if cfg.family == "lm"
                   else {})
         step = make_train_step(model, opt, ctx, accum=args.accum, **fwd_kw)
-    state = train_state(model, opt)
+    state = train_state(model, opt, ctx)
     loader = Loader(data_config_for(mc, args.batch, args.seq, args.seed),
                     ctx.device)
 
@@ -193,7 +205,26 @@ def _loop(args, ctx: ShardingCtx) -> dict:
     if losses and log:
         print(f"done at step {state['step']}; loss {losses[0]:.4f} → "
               f"{losses[-1]:.4f}")
-    return {"losses": losses, "step_s": step_s, "device": str(ctx.device)}
+    out = {"losses": losses, "step_s": step_s, "device": str(ctx.device)}
+    if ctx.device.type == "cuda":
+        out["peak_bytes"] = _peaks(ctx)
+        if log:
+            print(f"peak memory per rank (max_memory_allocated): "
+                  f"{[f'{b / 2**30:.4g} GiB' for b in out['peak_bytes']]}",
+                  flush=True)
+    return out
+
+
+def _peaks(ctx: ShardingCtx) -> list[int]:
+    """Every rank's ``max_memory_allocated``, in rank order."""
+    peak = torch.cuda.max_memory_allocated(ctx.device)
+    if not ctx.sharded:
+        return [peak]
+    mine = torch.tensor([peak], dtype=torch.int64,
+                        device=ctx.mesh.host_device)
+    parts = [torch.empty_like(mine) for _ in range(ctx.mesh.size)]
+    dist.all_gather(parts, mine)
+    return [int(t) for t in parts]
 
 
 if __name__ == "__main__":

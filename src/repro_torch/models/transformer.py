@@ -22,6 +22,19 @@ entry per layer ({"k", "v"} for attention, {"state", "conv_x", "conv_B",
 "conv_C"} in fp32 for the SSM), made by ``zeros_like_spec(cache_spec(...))``
 and written in place. The SSM's prompt pass starts from the state in its
 cache, so a cache is zeroed (or made anew) before each prompt pass.
+
+Across ranks (``ctx.sharded``: the tokens a ``parallel.sharded.Sharded``
+placed ``("batch", None)``, the parameters this rank's blocks) ``forward``
+and ``loss_fn`` keep the unsharded meaning, as GSPMD keeps the reference's:
+the residual stream is re-laid out as ``("batch", "seq", "act_embed")``
+after the embedding and after every block (the reference's constraints);
+the head takes the final-normed stream with its sequence whole and the
+logits are re-laid out as ``("batch", "seq", "vocab")``, which under the
+paper's tables keeps every row's logits whole (batch or seq claims the
+model axis before vocab); the loss is sum(ce·mask) / max(sum(mask), 1)
+over the whole batch, both sums all-reduced over the ranks that split the
+rows. ``prefill`` and ``decode_step`` run on one device: the sharded
+serving layouts are ROADMAP queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -33,9 +46,11 @@ from torch import nn
 
 from ..nn.attention import Attention, AttentionConfig
 from ..nn.ffn import FFN, FFNConfig
-from ..nn.layers import Embedding, RMSNorm
+from ..nn.layers import Embedding, RMSNorm, project
 from ..nn.module import ShardingCtx, fan_in_normal
 from ..nn.ssm import SSDBlock, SSMConfig
+from ..parallel import collectives as C
+from ..parallel.sharded import Sharded, axes_of, param_block
 
 # the reference's block kinds; the port builds "attn" and "ssm"
 KINDS = ("attn", "local_attn", "mla", "moe", "ssm", "rec")
@@ -92,8 +107,13 @@ class Block(nn.Module):
 
     def forward(self, h, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
-        h, _ = self.prefill(h, None, ctx, q_chunk, kv_chunk)
-        return h
+        if not isinstance(h, Sharded):
+            h, _ = self.prefill(h, None, ctx, q_chunk, kv_chunk)
+            return h
+        kw = {} if isinstance(self.mixer, SSDBlock) else dict(
+            q_chunk=q_chunk, kv_chunk=kv_chunk)
+        h = self._ffn(h + self.mixer(self.norm1(h, ctx), ctx, **kw), ctx)
+        return ctx.constrain(h, ("batch", "seq", "act_embed"))
 
     def _ffn(self, h, ctx: ShardingCtx):
         if isinstance(self.mixer, SSDBlock):
@@ -141,17 +161,30 @@ class TransformerLM(nn.Module):
         self.final_norm = RMSNorm(c.d_model, device=device)
         if not c.tie_embeddings:
             self.head = fan_in_normal((c.d_model, c.vocab), (0,), generator,
-                                      device, c.dtype)
+                                      device, c.dtype,
+                                      axes=("embed", "vocab"))
         self.blocks = nn.ModuleList(
             Block(c, kind, device=device, generator=generator)
             for kind in c.block_kinds())
 
     def _embed(self, tokens, ctx: ShardingCtx):
-        return self.embed(tokens, ctx).to(self.cfg.dtype)
+        h = self.embed(tokens, ctx)
+        if not isinstance(h, Sharded):
+            return h.to(self.cfg.dtype)
+        return ctx.constrain(h.map(lambda t: t.to(self.cfg.dtype)),
+                             ("batch", "seq", "act_embed"))
 
     def _logits(self, h, ctx: ShardingCtx):
-        w = self.embed.table.t() if self.cfg.tie_embeddings else self.head
-        return _fp32_logits(self.final_norm(h, ctx), w)
+        h = self.final_norm(h, ctx)
+        if not isinstance(h, Sharded):
+            w = self.embed.table.t() if self.cfg.tie_embeddings else \
+                self.head
+            return _fp32_logits(h, w)
+        w = param_block(self.embed.table, h.mesh).T \
+            if self.cfg.tie_embeddings else self.head
+        logits = project(ctx.constrain(h, ("batch", None, "act_embed")), w,
+                         dtype=torch.float32)
+        return ctx.constrain(logits, ("batch", "seq", "vocab"))
 
     def forward(self, tokens, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
@@ -159,7 +192,8 @@ class TransformerLM(nn.Module):
         h = self._embed(tokens, ctx)
         for block in self.blocks:
             h = block(h, ctx, q_chunk, kv_chunk)
-        return self._logits(h, ctx), torch.zeros((), device=h.device)
+        dev = h.local.device if isinstance(h, Sharded) else h.device
+        return self._logits(h, ctx), torch.zeros((), device=dev)
 
     def loss_fn(self, batch: dict, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
@@ -170,9 +204,12 @@ class TransformerLM(nn.Module):
         tokens = batch["tokens"]
         targets = batch.get("targets")
         if targets is None:
-            targets = F.pad(tokens[:, 1:], (0, 1))
+            targets = _shift(tokens)
         logits, aux = self(tokens, ctx, q_chunk, kv_chunk)
         mask = batch.get("mask")
+        if isinstance(logits, Sharded):
+            loss = _sharded_loss(logits, targets, mask)
+            return loss + aux, {"ce": loss, "aux": aux}
         if mask is None:
             mask = torch.ones(tokens.shape, dtype=torch.float32,
                               device=tokens.device)
@@ -188,6 +225,7 @@ class TransformerLM(nn.Module):
     def prefill(self, tokens, cache, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
         """Prompt pass: returns (last-position logits (B, 1, vocab), cache)."""
+        _one_device(ctx, "prefill")
         h = self._embed(tokens, ctx)
         for block, c in zip(self.blocks, cache["blocks"], strict=True):
             h, _ = block.prefill(h, c, ctx, q_chunk, kv_chunk)
@@ -197,6 +235,7 @@ class TransformerLM(nn.Module):
     def decode_step(self, token, cache, pos, ctx: ShardingCtx):
         """token: (B, C) int; pos: an int or (B,) tensor, each sequence's
         first new index. Returns (logits (B, C, vocab), cache)."""
+        _one_device(ctx, "decode")
         h = self._embed(token, ctx)
         for block, c in zip(self.blocks, cache["blocks"], strict=True):
             h, _ = block.decode(h, c, pos, ctx)
@@ -204,6 +243,45 @@ class TransformerLM(nn.Module):
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+
+def _one_device(ctx: ShardingCtx, what: str) -> None:
+    if ctx.sharded:
+        raise NotImplementedError(
+            f"{what} across ranks is not ported: the sharded serving "
+            f"layouts (serve_tp wider than 1, serve_seqkv) are ROADMAP "
+            f"queue 1 item 6")
+
+
+def _shift(tokens):
+    """The default targets: the tokens shifted left, 0 at the end (of a
+    ``Sharded`` batch, whose sequences are whole, on each block)."""
+    if not isinstance(tokens, Sharded):
+        return F.pad(tokens[:, 1:], (0, 1))
+    if tokens.place[1]:
+        raise ValueError("the default targets need whole sequences: place "
+                         "the tokens ('batch', None)")
+    return tokens.map(lambda t: F.pad(t[:, 1:], (0, 1)))
+
+
+def _sharded_loss(logits: Sharded, targets: Sharded, mask) -> torch.Tensor:
+    """sum(ce·mask) / max(sum(mask), 1) over the whole batch, from each
+    rank's rows of whole logits: both sums all-reduced over the ranks that
+    split the rows (the numerator differentiably), so every rank holds the
+    loss."""
+    mesh, rows = logits.mesh, logits.place[:2]
+    logits = logits.relayout(rows + ((),))
+    ce = _xent(logits.local, targets.relayout(rows).local)
+    if mask is None:
+        mask = torch.ones_like(ce)
+    else:
+        mask = mask.relayout(rows).local
+    num, den = (ce * mask).sum(), mask.sum()
+    split = axes_of(mesh, rows)
+    if split:
+        group = mesh.group(split)
+        num, den = C.all_reduce(num, group), C.all_reduce_sum(den, group)
+    return num / torch.clamp(den, min=1.0)
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

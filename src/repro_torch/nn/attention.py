@@ -20,6 +20,16 @@ Execution paths, as in the reference:
     writes the new keys and values into the cache in place (the reference
     returns an updated copy): a full-width cache is gigabytes.
 
+Across ranks (a ``parallel.sharded.Sharded`` input) ``forward`` re-lays
+the activations out at the reference's constraint points: the input with
+its sequence whole (``("batch", None, "act_embed")``), q, k and v with their
+heads split as ``act_heads``/``act_kv`` say, the output as the residual
+stream. The projections are column-parallel on the heads (the biases split
+with them), RoPE runs at global positions (the sequence is whole there),
+the attention itself on the local batch rows and heads, and ``wo`` is
+row-parallel (``nn.layers.project``). The caches (``prefill``,
+``decode``) run on one device.
+
 Grouped kv heads, a sliding window and its ring cache, a logit softcap, an
 output bias, ``qk_norm``, MLA and cross-attention come with the first ported
 model that uses them; a config with fewer kv heads than heads raises.
@@ -35,6 +45,8 @@ from torch import nn
 from ..kernels.flash_attention.flash_attention import \
     flash_attention as flash_attention_kernel
 from ..kernels.util import largest_divisor
+from ..parallel.sharded import Sharded, param_for
+from .layers import project
 from .module import ShardingCtx, constant, fan_in_normal
 from .rotary import apply_rope
 
@@ -128,19 +140,20 @@ class Attention(nn.Module):
                 f"are not ported yet")
         kw = dict(generator=generator, device=device, dtype=c.dtype)
         self.wq = fan_in_normal((c.d_model, c.n_heads, c.head_dim), (0,),
-                                **kw)
+                                axes=("embed", "heads", "head_dim"), **kw)
         self.wk = fan_in_normal((c.d_model, c.n_kv_heads, c.head_dim), (0,),
-                                **kw)
+                                axes=("embed", "kv_heads", "head_dim"), **kw)
         self.wv = fan_in_normal((c.d_model, c.n_kv_heads, c.head_dim), (0,),
-                                **kw)
+                                axes=("embed", "kv_heads", "head_dim"), **kw)
         self.wo = fan_in_normal((c.n_heads, c.head_dim, c.d_model), (0, 1),
-                                **kw)
+                                axes=("heads", "head_dim", "embed"), **kw)
         if c.use_bias:
-            self.bq = constant((c.n_heads, c.head_dim), 0.0, device, c.dtype)
+            self.bq = constant((c.n_heads, c.head_dim), 0.0, device, c.dtype,
+                               axes=("heads", "head_dim"))
             self.bk = constant((c.n_kv_heads, c.head_dim), 0.0, device,
-                               c.dtype)
+                               c.dtype, axes=("kv_heads", "head_dim"))
             self.bv = constant((c.n_kv_heads, c.head_dim), 0.0, device,
-                               c.dtype)
+                               c.dtype, axes=("kv_heads", "head_dim"))
 
     def _qkv(self, x, positions):
         """x: (B, S, d) → q, k and v (B, S, H, hd), q and k rotated."""
@@ -155,11 +168,52 @@ class Attention(nn.Module):
     def _out(self, o):
         return o.flatten(2) @ self.wo.flatten(0, 1)
 
+    @staticmethod
+    def _core(q, k, v, ctx: ShardingCtx, q_chunk: int, kv_chunk: int):
+        """Causal attention of (B, S, H, hd) q, k and v: the kernel with
+        ``ctx.use_pallas`` (it takes (B, H, S, D) views of the tensors as
+        they are, and its output is such a view too), else the chunked
+        plain path."""
+        if ctx.use_pallas:
+            return flash_attention_kernel(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True).transpose(1, 2)
+        return flash_attention(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk)
+
     # -- training / prefill forward (the reference's ``apply``) -------------
     def forward(self, x, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
+        if isinstance(x, Sharded):
+            return self._sharded(x, ctx, q_chunk, kv_chunk)
         y, _ = self.prefill(x, None, ctx, q_chunk, kv_chunk)
         return y
+
+    def _sharded(self, x: Sharded, ctx: ShardingCtx, q_chunk: int,
+                 kv_chunk: int) -> Sharded:
+        """``forward`` across ranks (the reference's ``_qkv``, its chunked
+        attention and ``_out`` under its constraints)."""
+        c = self.cfg
+        x = ctx.constrain(x, ("batch", None, "act_embed"))
+        positions = torch.arange(x.shape[1], device=x.local.device)[None, :]
+
+        def qkv(w, b, rotate, act):
+            t = project(x, w)
+            y = t.local
+            if b is not None:
+                y = y + param_for(b, t, 2).relayout(t.place[2:]).local
+            if rotate:
+                y = apply_rope(y, positions, c.rope_base)
+            return ctx.constrain(Sharded(y, t.shape, t.place, t.mesh),
+                                 ("batch", None, act, None))
+
+        bias = (self.bq, self.bk, self.bv) if c.use_bias else (None,) * 3
+        q = qkv(self.wq, bias[0], True, "act_heads")
+        k = qkv(self.wk, bias[1], True, "act_kv").relayout(q.place)
+        v = qkv(self.wv, bias[2], False, "act_kv").relayout(q.place)
+        o = q.map(lambda ql, kl, vl: self._core(ql, kl, vl, ctx, q_chunk,
+                                                kv_chunk), k, v)
+        return ctx.constrain(project(o, self.wo, n=2),
+                             ("batch", "seq", "act_embed"))
 
     def prefill(self, x, cache, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
@@ -171,15 +225,7 @@ class Attention(nn.Module):
         if cache is not None:
             cache["k"][:, 0, :S] = k
             cache["v"][:, 0, :S] = v
-        if ctx.use_pallas:
-            # the kernel takes (B, H, S, D) views of the (B, S, H, D)
-            # tensors as they are, and its output is such a view too
-            o = flash_attention_kernel(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2),
-                                       causal=True).transpose(1, 2)
-        else:
-            o = flash_attention(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk)
-        return self._out(o), cache
+        return self._out(self._core(q, k, v, ctx, q_chunk, kv_chunk)), cache
 
     # -- KV cache -----------------------------------------------------------
     def cache_spec(self, batch: int, max_len: int,

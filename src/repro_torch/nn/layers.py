@@ -27,6 +27,22 @@ follow its placement and their parameters' (``shard_params``):
   unsharded-semantics ``jnp.mean`` does under GSPMD.
 * ``max_pool`` as a conv window; ``global_avg_pool`` sums over the ranks
   that split the image; ``flatten`` gathers every dim but the batch.
+
+and so do the LM layers:
+
+* ``project``: the last n dims of an activation contracted with the first
+  n of a weight (``Dense``, and the LMs' (B, S, D) projections): a weight
+  split on an out dim gives an output split there (column-parallel), one
+  split on a contracted dim all-reduces the partial sums (row-parallel);
+* ``Embedding``: a table split on ``vocab`` looks up the ids in its rows
+  and all-reduces (rows it does not hold give zeros), one split on
+  ``embed`` gives an output split there;
+* ``RMSNorm``: where the normed dim is split (the SSD's gated norm over
+  ``d_inner``), the sum of squares is all-reduced over the ranks that split
+  it and divided by the whole dim.
+
+A weight split on an axis that also splits the activation's leading
+(batch, sequence) dims is gathered on that axis first (``param_for``).
 """
 from __future__ import annotations
 
@@ -40,7 +56,8 @@ from ..kernels.rmsnorm.ref import rmsnorm_ref
 from ..kernels.rmsnorm.rmsnorm import rmsnorm
 from ..kernels.util import cdiv, conv_weight, same_pads
 from ..parallel import collectives as C
-from ..parallel.sharded import Sharded, param_block
+from ..parallel.sharded import (Sharded, axes_of, block_index, param_block,
+                                param_for)
 from .module import ShardingCtx, constant, fan_in_normal
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -98,16 +115,37 @@ class Dense(nn.Module):
         return y + self.b if self.use_bias else y
 
     def _sharded(self, x: Sharded) -> Sharded:
-        mesh = x.mesh
-        w = param_block(self.w, mesh)
-        cin, cout = w.place
-        x = x.relayout((x.place[0], cin))
-        y = x.local @ w.local
-        if cin:
-            y = C.all_reduce(y, mesh.group(cin))
+        y = project(x, self.w)
         if self.use_bias:
-            y = y + param_block(self.b, mesh).relayout((cout,)).local
-        return Sharded(y, (x.shape[0], w.shape[1]), (x.place[0], cout), mesh)
+            b = param_for(self.b, y, y.dim() - 1).relayout(y.place[-1:])
+            y = Sharded(y.local + b.local, y.shape, y.place, y.mesh)
+        return y
+
+
+def project(x: Sharded, w, n: int = 1,
+            dtype: torch.dtype | None = None) -> Sharded:
+    """``x``'s last ``n`` dims contracted with the first ``n`` of weight
+    ``w`` (a parameter, or a ``Sharded`` view of one), as the unsharded
+    ``x.flatten(-n) @ w.flatten(0, n-1)``; ``dtype``: the operands cast to
+    it first. ``x``'s contracted dims are re-laid out as ``w``'s; where
+    those are split, the partial products are all-reduced in fp32 and
+    rounded once after, as the unsharded product rounds its fp32
+    accumulator once (partial sums rounded to bf16 each move the smoke
+    bf16 Qwen's loss by ~3e-5)."""
+    mesh = x.mesh
+    lead = x.place[:-n]
+    w = param_for(w, x, len(lead))
+    cin = w.place[:n]
+    x = x.relayout(lead + cin)
+    xl, wl = x.local, w.local
+    out = dtype or torch.promote_types(xl.dtype, wl.dtype)
+    red = axes_of(mesh, cin)
+    acc = torch.promote_types(out, torch.float32) if red else out
+    y = (xl.to(acc).flatten(-n) @ wl.to(acc).flatten(0, n - 1).flatten(1)
+         ).unflatten(-1, wl.shape[n:])
+    if red:
+        y = C.all_reduce(y, mesh.group(red)).to(out)
+    return Sharded(y, x.shape[:-n] + w.shape[n:], lead + w.place[n:], mesh)
 
 
 class Embedding(nn.Module):
@@ -122,23 +160,53 @@ class Embedding(nn.Module):
                                    device, dtype, axes=("vocab", "embed"))
 
     def forward(self, ids, ctx: ShardingCtx):
+        if isinstance(ids, Sharded):
+            return self._sharded(ids)
         return self.table[ids]
+
+    def _sharded(self, ids: Sharded) -> Sharded:
+        mesh = ids.mesh
+        t = param_for(self.table, ids, ids.dim())
+        rows, cols = t.place
+        if rows:
+            lo = block_index(mesh, t.shape, t.place)[0].start
+            ix = ids.local.long() - lo
+            mine = (ix >= 0) & (ix < t.local.shape[0])
+            y = t.local[torch.where(mine, ix, 0)]
+            y = torch.where(mine[..., None], y, torch.zeros(
+                (), dtype=y.dtype, device=y.device))
+            y = C.all_reduce(y, mesh.group(axes_of(mesh, (rows,))))
+        else:
+            y = t.local[ids.local]
+        return Sharded(y, ids.shape + t.shape[1:], ids.place + (cols,), mesh)
 
 
 class RMSNorm(nn.Module):
     """x·rsqrt(mean(x²) + eps)·scale over the last dim, in fp32, cast back to
-    x's dtype; the scale is fp32, as the reference's tree default makes it.
-    With ``ctx.use_pallas`` it runs the fused kernel, else its plain
-    version."""
+    x's dtype; the scale is fp32, as the reference's tree default makes it,
+    on the logical axis ``axis_name`` ("embed", or "mlp" for the SSD's
+    gated norm over d_inner). With ``ctx.use_pallas`` it runs the fused
+    kernel, else its plain version."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, *, device: torch.device):
+    def __init__(self, dim: int, eps: float = 1e-6, *, device: torch.device,
+                 axis_name: str | None = "embed"):
         super().__init__()
         self.eps = eps
-        self.scale = constant((dim,), 1.0, device, axes=("embed",))
+        self.scale = constant((dim,), 1.0, device, axes=(axis_name,))
 
     def forward(self, x, ctx: ShardingCtx):
         norm = rmsnorm if ctx.use_pallas else rmsnorm_ref
-        return norm(x, self.scale, eps=self.eps)
+        if not isinstance(x, Sharded):
+            return norm(x, self.scale, eps=self.eps)
+        cols = x.place[-1]
+        scale = param_for(self.scale, x, x.dim() - 1).relayout((cols,)).local
+        if not cols:
+            return x.map(lambda t: norm(t, scale, eps=self.eps))
+        xf = x.local.float()
+        ss = C.all_reduce((xf * xf).sum(-1, keepdim=True),
+                          x.mesh.group(axes_of(x.mesh, (cols,))))
+        y = xf * torch.rsqrt(ss / x.shape[-1] + self.eps) * scale.float()
+        return Sharded(y.to(x.local.dtype), x.shape, x.place, x.mesh)
 
 
 class BatchNorm(nn.Module):
@@ -170,7 +238,7 @@ class BatchNorm(nn.Module):
         mesh, xl = x.mesh, x.local
         xf = xl.float()
         axes = tuple(range(xl.dim() - 1))
-        split = _axes_of(mesh, x.place[:-1])
+        split = axes_of(mesh, x.place[:-1])
         if split:
             sums = torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
             sums = C.all_reduce(sums, mesh.group(split))
@@ -211,13 +279,6 @@ def conv_local(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
 
 def _out_extent(n: int, k: int, s: int, padding: str) -> int:
     return cdiv(n, s) if padding == "SAME" else (n - k) // s + 1
-
-
-def _axes_of(mesh, place) -> tuple[str, ...]:
-    """The mesh axes that split any of the dims of ``place``, in mesh
-    order."""
-    used = {a for axes in place for a in axes}
-    return tuple(a for a in mesh.shape if a in used)
 
 
 def _window_place(x: Sharded, k: int, s: int) -> tuple:
@@ -331,7 +392,7 @@ def global_avg_pool(x):
     if isinstance(x, Sharded):
         mesh, dims = x.mesh, tuple(range(1, x.dim() - 1))
         s = x.local.sum(dim=dims)
-        split = _axes_of(mesh, x.place[1:-1])
+        split = axes_of(mesh, x.place[1:-1])
         if split:
             s = C.all_reduce(s, mesh.group(split))
         n = 1

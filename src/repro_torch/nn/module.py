@@ -66,6 +66,11 @@ class Rules:
                 return v
         return None
 
+    def merged(self, extra: Mapping[str, Any]) -> "Rules":
+        d = dict(self.table)
+        d.update(extra)
+        return Rules.of(d)
+
 
 def spec_to_pspec(spec_axes: Sequence[str | None], rules: Rules, mesh,
                   shape: Sequence[int] | None = None) -> tuple:
@@ -194,23 +199,23 @@ def fan_in_normal(shape: Sequence[int], fan_axes: Sequence[int],
                     device=device if generator is None else generator.device)
     if w.device.type != "meta":
         w.normal_(0.0, 1.0 / np.sqrt(max(fan, 1)), generator=generator)
-    return _with_axes(torch.nn.Parameter(w.to(device)), shape, axes)
+    return with_axes(torch.nn.Parameter(w.to(device)), axes)
 
 
 def constant(shape: Sequence[int], value: float, device: torch.device,
              dtype: torch.dtype = torch.float32,
              axes: Sequence[str | None] | None = None) -> torch.nn.Parameter:
-    return _with_axes(torch.nn.Parameter(torch.full(
-        tuple(shape), value, dtype=dtype, device=device)), shape, axes)
+    return with_axes(torch.nn.Parameter(torch.full(
+        tuple(shape), value, dtype=dtype, device=device)), axes)
 
 
-def _with_axes(p: torch.nn.Parameter, shape, axes) -> torch.nn.Parameter:
+def with_axes(p: torch.nn.Parameter, axes) -> torch.nn.Parameter:
     """Records the logical axes on the parameter (as the reference's
-    ``ParamSpec.axes``), checked against LOGICAL_AXES."""
+    ``ParamSpec.axes``), checked against LOGICAL_AXES; returns ``p``."""
     if axes is not None:
         axes = tuple(axes)
-        if len(axes) != len(shape):
-            raise ValueError(f"shape {tuple(shape)} / axes {axes} rank "
+        if len(axes) != p.dim():
+            raise ValueError(f"shape {tuple(p.shape)} / axes {axes} rank "
                              f"mismatch")
         for a in axes:
             if a is not None and a not in LOGICAL_AXES:

@@ -20,6 +20,16 @@ Execution paths:
 
 The reference rounds each bf16 elementwise op on its own; the port keeps
 its op order (the conv's sum of K products, then the bias, then SiLU).
+
+Across ranks (a ``parallel.sharded.Sharded`` input) ``forward`` is the
+reference's ``apply`` under its constraints: the five projections off the
+input with its sequence whole (z and x column-parallel on ``mlp``, dt on
+``heads``), the depthwise convs on whole sequences and the local channels,
+x re-laid out with its d_inner split as the reference's
+``("batch", None, "act_heads", None)`` splits the heads before the
+(B, S, H, P) view, the SSD on the local heads, the gated norm (its sum of
+squares all-reduced where d_inner is split) and ``out_proj`` row-parallel.
+The caches (``prefill``, ``decode``) run on one device.
 """
 from __future__ import annotations
 
@@ -31,9 +41,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssd_scan.ssd_scan import ssd_chunk
+from ..parallel.sharded import Sharded, param_for, placement
 from .ffn import _silu
-from .layers import RMSNorm
-from .module import ShardingCtx, constant, fan_in_normal
+from .layers import RMSNorm, project
+from .module import ShardingCtx, constant, fan_in_normal, with_axes
 
 
 @dataclass(frozen=True)
@@ -83,24 +94,38 @@ class SSDBlock(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=c.dtype)
-        self.w_z = fan_in_normal((c.d_model, c.d_inner), (0,), **kw)
-        self.w_x = fan_in_normal((c.d_model, c.d_inner), (0,), **kw)
-        self.w_B = fan_in_normal((c.d_model, c.bc_dim), (0,), **kw)
-        self.w_C = fan_in_normal((c.d_model, c.bc_dim), (0,), **kw)
-        self.w_dt = fan_in_normal((c.d_model, c.n_heads), (0,), **kw)
-        self.conv_x = fan_in_normal((c.d_conv, c.d_inner), (0,), **kw)
-        self.conv_B = fan_in_normal((c.d_conv, c.bc_dim), (0,), **kw)
-        self.conv_C = fan_in_normal((c.d_conv, c.bc_dim), (0,), **kw)
-        self.conv_b_x = constant((c.d_inner,), 0.0, device, c.dtype)
-        self.conv_b_B = constant((c.bc_dim,), 0.0, device, c.dtype)
-        self.conv_b_C = constant((c.bc_dim,), 0.0, device, c.dtype)
-        self.dt_bias = nn.Parameter(self._dt_bias_init(generator, device))
+        self.w_z = fan_in_normal((c.d_model, c.d_inner), (0,),
+                                 axes=("embed", "mlp"), **kw)
+        self.w_x = fan_in_normal((c.d_model, c.d_inner), (0,),
+                                 axes=("embed", "mlp"), **kw)
+        self.w_B = fan_in_normal((c.d_model, c.bc_dim), (0,),
+                                 axes=("embed", "state"), **kw)
+        self.w_C = fan_in_normal((c.d_model, c.bc_dim), (0,),
+                                 axes=("embed", "state"), **kw)
+        self.w_dt = fan_in_normal((c.d_model, c.n_heads), (0,),
+                                  axes=("embed", "heads"), **kw)
+        self.conv_x = fan_in_normal((c.d_conv, c.d_inner), (0,),
+                                    axes=("conv_k", "mlp"), **kw)
+        self.conv_B = fan_in_normal((c.d_conv, c.bc_dim), (0,),
+                                    axes=("conv_k", "state"), **kw)
+        self.conv_C = fan_in_normal((c.d_conv, c.bc_dim), (0,),
+                                    axes=("conv_k", "state"), **kw)
+        self.conv_b_x = constant((c.d_inner,), 0.0, device, c.dtype,
+                                 axes=("mlp",))
+        self.conv_b_B = constant((c.bc_dim,), 0.0, device, c.dtype,
+                                 axes=("state",))
+        self.conv_b_C = constant((c.bc_dim,), 0.0, device, c.dtype,
+                                 axes=("state",))
+        self.dt_bias = with_axes(nn.Parameter(
+            self._dt_bias_init(generator, device)), ("heads",))
         # A = -exp(a_log) = -(1 .. H)
-        self.a_log = nn.Parameter(torch.log(torch.arange(
-            1, c.n_heads + 1, dtype=torch.float32, device=device)))
-        self.d_skip = constant((c.n_heads,), 1.0, device)
-        self.norm = RMSNorm(c.d_inner, device=device)
-        self.out_proj = fan_in_normal((c.d_inner, c.d_model), (0,), **kw)
+        self.a_log = with_axes(nn.Parameter(torch.log(torch.arange(
+            1, c.n_heads + 1, dtype=torch.float32, device=device))),
+            ("heads",))
+        self.d_skip = constant((c.n_heads,), 1.0, device, axes=("heads",))
+        self.norm = RMSNorm(c.d_inner, device=device, axis_name="mlp")
+        self.out_proj = fan_in_normal((c.d_inner, c.d_model), (0,),
+                                      axes=("mlp", "embed"), **kw)
 
     def _dt_bias_init(self, generator, device):
         """softplus⁻¹ of dt drawn log-uniform in [dt_min, dt_max]."""
@@ -202,8 +227,53 @@ class SSDBlock(nn.Module):
 
     def forward(self, u, ctx: ShardingCtx):
         """u: (B, S, d_model) → (B, S, d_model)."""
+        if isinstance(u, Sharded):
+            return self._sharded(u, ctx)
         y, _ = self.prefill(u, None, ctx)
         return y
+
+    def _sharded(self, u: Sharded, ctx: ShardingCtx) -> Sharded:
+        c = self.cfg
+        mesh = u.mesh
+        B_, S, _ = u.shape
+        u = ctx.constrain(u, ("batch", None, "act_embed"))
+        z, xs, Bm, Cm, dt = (project(u, w) for w in (
+            self.w_z, self.w_x, self.w_B, self.w_C, self.w_dt))
+        z = ctx.constrain(z, ("batch", None, "act_mlp"))
+        xs = ctx.constrain(xs, ("batch", None, "act_mlp"))
+
+        def conv(t: Sharded, w, b) -> Sharded:
+            ch = t.place[-1:]
+            w = param_for(w, t, 2).relayout(((),) + ch).local
+            b = param_for(b, t, 2).relayout(ch).local
+            return t.map(lambda tl: self._causal_conv(tl, w, b))
+
+        # d_inner split as the heads: block k of H heads is block k of
+        # their H·P channels
+        heads = placement(mesh, ctx.pspec(("batch", None, "act_heads", None),
+                                          (B_, S, c.n_heads, c.head_dim)))
+        xs = conv(xs, self.conv_x, self.conv_b_x).relayout(heads[:3])
+        Bm = conv(Bm, self.conv_B, self.conv_b_B).relayout(heads[:2] + ((),))
+        Cm = conv(Cm, self.conv_C, self.conv_b_C).relayout(heads[:2] + ((),))
+        dt = dt.relayout(heads[:3])
+        if c.n_groups != 1 and heads[2]:
+            raise NotImplementedError("B and C in several groups beside "
+                                      "split heads are not ported")
+        dt_bias, a_log, d_skip = (param_for(p, dt, 2).relayout(heads[2:3])
+                                  .local for p in (self.dt_bias, self.a_log,
+                                                   self.d_skip))
+        x4 = xs.local.unflatten(-1, (-1, c.head_dim))
+        dtf = _softplus(dt.local.float() + dt_bias)
+        y, _ = self._ssd(x4.float(), dtf, -torch.exp(a_log),
+                         Bm.local.unflatten(-1, (c.n_groups, c.d_state))
+                         .float(),
+                         Cm.local.unflatten(-1, (c.n_groups, c.d_state))
+                         .float(), ctx=ctx)
+        y = (y + x4.float() * d_skip[None, None, :, None]).flatten(2)
+        y = Sharded(y.to(u.local.dtype), xs.shape, xs.place, mesh).map(
+            lambda yl, zl: yl * _silu(zl), z)
+        return ctx.constrain(project(self.norm(y, ctx), self.out_proj),
+                             ("batch", "seq", "act_embed"))
 
     def prefill(self, u, cache, ctx: ShardingCtx):
         """Forward over the prompt, from the cache's state when a cache is

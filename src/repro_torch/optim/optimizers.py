@@ -1,7 +1,6 @@
 """Optimizers: SGD(+momentum) and AdamW (counterpart of
 ``repro.optim.optimizers``), for the CNNs and the LMs, on one device and
-across ranks; ZeRO-1 state sharding is not ported yet (ROADMAP queue 1
-item 6).
+across ranks, with ZeRO-1's sharded state.
 
 State is a dict of fp32 tensors keyed by parameter name (``m``/``v`` for
 AdamW, ``mom`` for SGD). Unlike the JAX package's pure update, ``apply_update``
@@ -13,6 +12,19 @@ the same numbers as the reference's ``clip_by_global_norm``, without an
 fp32 copy of every gradient at once (15.8 GB for Qwen1.5-4B's bf16
 gradients). Across ranks the norm is over the whole model (``sharded_global_norm``): each parameter's
 squares summed over its blocks, and a replicated parameter counted once.
+
+ZeRO-1 (``zero1``, on a mesh; the reference's ``zero1_rules``): the state
+of each parameter is placed by the strategy's rules with the logical axes
+they leave free mapped onto "data", so it holds a block of the
+parameter's block wherever the parameter is replicated over "data". Each
+rank updates its block of the state and of the parameter
+(``apply_update``, from the whole summed gradient), then the parameter is
+all-gathered over "data" (``gather_zero1``): the numbers of the step
+without ZeRO-1. The state tensors carry their placement as parameters do
+(``place``, ``global_shape``, ``shard_index``). On one device ``zero1``
+changes nothing; unlike the reference's, it is off unless asked for (the
+trainer sets it for the ``*_zero1`` tables, as the reference's
+``build_cell`` does).
 """
 from __future__ import annotations
 
@@ -20,8 +32,10 @@ from dataclasses import dataclass
 
 import torch
 
+from ..nn.module import Rules, spec_to_pspec
 from ..parallel import collectives as C
-from ..parallel.sharded import replicas
+from ..parallel.sharded import (Sharded, block_index, local_shape, placement,
+                                replicas)
 
 
 @dataclass(frozen=True)
@@ -34,12 +48,47 @@ class OptimizerConfig:
     weight_decay: float = 0.0
     momentum: float = 0.9          # sgd
     grad_clip: float = 1.0
+    zero1: bool = False
 
 
-def init_state(opt: OptimizerConfig, params: dict[str, torch.Tensor]) -> dict:
-    """fp32 zeros shaped like each parameter (counterpart of ``state_spec``)."""
+def zero1_rules(rules: Rules) -> Rules:
+    """The strategy's rules with the axes it leaves free mapped onto
+    "data": the placement of ZeRO-1's optimizer state (the reference's)."""
+    extra = {}
+    for ax in ("embed", "vocab", "mlp", "heads", "conv_in", "conv_k",
+               "layers"):
+        if rules.get(ax) is None:
+            extra[ax] = "data"
+    return rules.merged(extra)
+
+
+def _zero1_zeros(p: torch.Tensor, ctx) -> torch.Tensor:
+    """fp32 zeros: this rank's block of ``p``'s ZeRO-1 state."""
+    mesh, shape = ctx.mesh, tuple(getattr(p, "global_shape", p.shape))
+    place = placement(mesh, spec_to_pspec(p.axes, zero1_rules(ctx.rules),
+                                          mesh, shape))
+    own = getattr(p, "place", ((),) * p.dim())
+    for dim, (st, pa) in enumerate(zip(place, own)):
+        if st != pa and pa:
+            raise ValueError(f"the ZeRO-1 state of a parameter placed {own} "
+                             f"would be placed {place}: dim {dim} is not a "
+                             f"block of the parameter's block")
+    t = torch.zeros(local_shape(mesh, shape, place), dtype=torch.float32,
+                    device=p.device)
+    t.place, t.global_shape, t.shard_index = \
+        place, shape, block_index(mesh, shape, place)
+    return t
+
+
+def init_state(opt: OptimizerConfig, params: dict[str, torch.Tensor],
+               ctx=None) -> dict:
+    """fp32 zeros shaped like each parameter (counterpart of
+    ``state_spec``); with ``opt.zero1`` on ``ctx``'s mesh, this rank's
+    ZeRO-1 blocks of them."""
 
     def zeros():
+        if opt.zero1 and ctx is not None and ctx.sharded:
+            return {k: _zero1_zeros(p, ctx) for k, p in params.items()}
         return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for k, p in params.items()}
 
@@ -82,13 +131,27 @@ def clip_scale(grads: dict[str, torch.Tensor], max_norm: float,
 
 
 
+def _owned(t: torch.Tensor, p: torch.Tensor) -> tuple[slice, ...]:
+    """The part of ``p``'s local block whose state block ``t`` is: all of
+    it, or under ZeRO-1 the slices of the parameter's block that the
+    state's ``shard_index`` covers."""
+    idx = getattr(t, "shard_index", None)
+    if idx is None:
+        return (slice(None),) * p.dim()
+    base = getattr(p, "shard_index", (slice(0, None),) * p.dim())
+    return tuple(slice(i.start - b.start, i.stop - b.start)
+                 for i, b in zip(idx, base))
+
+
 @torch.no_grad()
 def apply_update(opt: OptimizerConfig, params: dict[str, torch.Tensor],
                  grads: dict[str, torch.Tensor], state: dict, step: int,
                  norm: torch.Tensor | None = None) -> dict:
     """Update ``params`` and ``state`` in place; returns the metrics.
     ``norm``: the global gradient norm, where the caller computed it across
-    ranks (``sharded_global_norm``)."""
+    ranks (``sharded_global_norm``). Under ZeRO-1 only the part of each
+    parameter whose state this rank holds is updated (``gather_zero1``
+    brings the rest)."""
     scale, gnorm = clip_scale(grads, opt.grad_clip, norm)
     count = float(step) + 1.0
 
@@ -96,7 +159,9 @@ def apply_update(opt: OptimizerConfig, params: dict[str, torch.Tensor],
         b1, b2 = opt.b1, opt.b2
         c1, c2 = 1 - b1 ** count, 1 - b2 ** count
         for k, p in params.items():
-            g, m, v = grads[k].float() * scale, state["m"][k], state["v"][k]
+            m, v = state["m"][k], state["v"][k]
+            own = _owned(m, p)
+            g, p = grads[k][own].float() * scale, p[own]
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
             pf = p.float()
@@ -106,10 +171,34 @@ def apply_update(opt: OptimizerConfig, params: dict[str, torch.Tensor],
         return {"grad_norm": gnorm}
 
     if opt.name == "sgd":
+        # in place, one temporary the size of a parameter at a time (the
+        # same roundings as mom·β + g·scale and p − lr·mom)
         for k, p in params.items():
             mom = state["mom"][k]
-            mom.copy_(opt.momentum * mom + grads[k].float() * scale)
-            p.copy_(p.float() - opt.lr * mom)
+            own = _owned(mom, p)
+            mom.mul_(opt.momentum).add_(grads[k][own].float() * scale)
+            p = p[own]
+            if p.dtype == torch.float32:
+                p.sub_(opt.lr * mom)
+            else:
+                p.copy_(p.float() - opt.lr * mom)
         return {"grad_norm": gnorm}
 
     raise ValueError(opt.name)
+
+
+@torch.no_grad()
+def gather_zero1(params: dict[str, torch.Tensor], state: dict,
+                 mesh) -> None:
+    """After a ZeRO-1 update: each parameter all-gathered, in place, from
+    the parts of it that the ranks of its state's placement updated."""
+    first = next(iter(state.values()))
+    for k, p in params.items():
+        t = first[k]
+        place = getattr(t, "place", None)
+        own = getattr(p, "place", ((),) * p.dim())
+        if place is None or place == own:
+            continue
+        part = Sharded(p[_owned(t, p)].contiguous(), t.global_shape, place,
+                       mesh)
+        p.copy_(part.relayout(own).local)

@@ -28,7 +28,9 @@ site; a wrong one scales gradients by p.
 
 Transport: under gloo, CUDA tensors pass ``all_reduce`` as they are (gloo
 takes them there) and cross every other collective through host buffers
-(``Group.stage``). The groups come from ``launch.mesh.Mesh.group``. Each
+(``Group.stage``). On the ``meta`` device a collective only gives its
+result's shape (``scripts/lm_train_memory.py`` reckons a sharded step's
+memory that way, with no ranks). The groups come from ``launch.mesh.Mesh.group``. Each
 transfer is a ``record_function`` span named ``comm.<collective>``, which
 ``launch.profile_train --strategies`` sums.
 """
@@ -46,6 +48,8 @@ def _host(x: torch.Tensor, stage: bool) -> torch.Tensor:
 def gather_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The blocks of all ranks of ``group`` along ``dim``, in group order
     (no autograd)."""
+    if x.is_meta:
+        return torch.cat([x] * group.size, dim)
     with record_function("comm.all_gather"):
         src = _host(x, group.stage)
         parts = [torch.empty_like(src) for _ in range(group.size)]
@@ -56,6 +60,8 @@ def gather_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def reduce_scatter_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum over ``group`` (no
     autograd)."""
+    if x.is_meta:
+        return x.chunk(group.size, dim)[0].contiguous()
     with record_function("comm.reduce_scatter"):
         src = _host(x, group.stage)
         parts = [c.contiguous() for c in src.chunk(group.size, dim)]
@@ -68,8 +74,18 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` in a new tensor (no autograd)."""
     with record_function("comm.all_reduce"):
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group.pg)
+        if not y.is_meta:
+            dist.all_reduce(y, group=group.pg)
         return y
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` in place (no autograd); ``x`` must be
+    contiguous."""
+    with record_function("comm.all_reduce"):
+        if not x.is_meta:
+            dist.all_reduce(x, group=group.pg)
+        return x
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:

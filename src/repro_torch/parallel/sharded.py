@@ -14,12 +14,18 @@ collectives (``nn/layers.py``, ``parallel/halo.py``); ``relayout`` moves a
 tensor between placements (all-gather the dims that lose axes, then split
 the dims that gain them), which is what ``ShardingCtx.constrain`` does at the
 reference's constraint points. Elementwise activations and the residual add
-act on the local blocks (``__torch_function__``); any other torch function
-on a ``Sharded`` raises.
+act on the local blocks (``__torch_function__``), as does any elementwise
+function through ``map`` (the LMs' SiLU gate); any other torch function on
+a ``Sharded`` raises.
 
 Parameters carry their placement too (``shard_params``): ``p.place``,
 ``p.global_shape`` and ``p.shard_index``, the slices of the global tensor
-that the local block holds (``bridge.load_jax_params`` copies those).
+that the local block holds (``bridge.load_jax_params`` copies those). A
+parameter split over a mesh axis that the activation it meets splits too
+(ZeRO-3's weights on "data" beside a batch on "data") is all-gathered on
+that axis where it is used (``param_for``); the gather's adjoint
+reduce-scatters its gradient, so ``replicas`` (the axes its placement does
+not use) still names every axis its gradient must be summed over.
 """
 from __future__ import annotations
 
@@ -49,6 +55,18 @@ def placement(mesh, pspec: Sequence) -> Placement:
 
 def replicated(ndim: int) -> Placement:
     return ((),) * ndim
+
+
+def without(place: Placement, axes) -> Placement:
+    """``place`` with ``axes`` taken out of every dim."""
+    return tuple(tuple(a for a in dim if a not in axes) for dim in place)
+
+
+def axes_of(mesh, place) -> tuple[str, ...]:
+    """The mesh axes that split any of the dims of ``place``, in mesh
+    order (the order ``Mesh.group`` takes)."""
+    used = {a for axes in place for a in axes}
+    return tuple(a for a in mesh.shape if a in used)
 
 
 def _parts(mesh, axes: tuple[str, ...]) -> int:
@@ -138,6 +156,25 @@ class Sharded:
     def __add__(self, other):
         return torch.add(self, other)
 
+    def map(self, fn, *others: "Sharded") -> "Sharded":
+        """``fn`` of the local blocks of ``self`` and of ``others`` (of
+        the same shape, re-laid out as ``self`` first), in ``self``'s
+        placement: ``fn`` keeps the block's shape and acts elementwise, or
+        along dims that ``self``'s placement leaves whole (the LMs' SiLU
+        gate; attention on local heads over whole sequences)."""
+        for o in others:
+            if o.shape != self.shape:
+                raise ValueError(f"elementwise map on shapes {self.shape} "
+                                 f"and {o.shape}")
+        y = fn(self.local, *(o.relayout(self.place).local for o in others))
+        return Sharded(y, self.shape, self.place, self.mesh)
+
+    @property
+    def T(self) -> "Sharded":
+        """A 2-D tensor transposed (a view of the local block)."""
+        return Sharded(self.local.t(), self.shape[::-1], self.place[::-1],
+                       self.mesh)
+
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -169,6 +206,14 @@ def param_block(p: torch.Tensor, mesh) -> Sharded:
     if place is None:
         return Sharded(p, p.shape, replicated(p.dim()), mesh)
     return Sharded(p, p.global_shape, place, mesh)
+
+
+def param_for(p, x: Sharded, lead: int) -> Sharded:
+    """Parameter ``p`` (or a ``Sharded`` view of one) as it meets
+    activation ``x``: gathered whole on every mesh axis that splits one of
+    ``x``'s first ``lead`` dims, which no other dim may use."""
+    w = p if isinstance(p, Sharded) else param_block(p, x.mesh)
+    return w.relayout(without(w.place, axes_of(x.mesh, x.place[:lead])))
 
 
 def replicas(p: torch.Tensor, mesh) -> tuple[str, ...]:

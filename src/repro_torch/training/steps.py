@@ -16,7 +16,10 @@ axes then has its gradient summed over them (one flat all-reduce per set of
 axes), and the clipping norm is the whole model's (see
 ``parallel/collectives.py`` for why that gives every rank the true
 gradient of its blocks). Microbatch i is rows [i·B/accum, (i+1)·B/accum) of
-the whole batch, as in the reference, gathered and split anew.
+the whole batch, as in the reference, gathered and split anew. Under
+ZeRO-1 (``opt.zero1``; ``train_state`` given the ctx places the state)
+each rank updates its block and the parameters are all-gathered after the
+update (``optim.optimizers.gather_zero1``).
 """
 from __future__ import annotations
 
@@ -25,15 +28,20 @@ from typing import Callable
 import torch
 
 from ..nn.module import ShardingCtx
-from ..optim.optimizers import (OptimizerConfig, apply_update, init_state,
+from ..optim.optimizers import (OptimizerConfig, apply_update,
+                                gather_zero1, init_state,
                                 sharded_global_norm)
 from ..parallel import collectives as C
 from ..parallel.sharded import Sharded, replicas
 
 
-def train_state(model: torch.nn.Module, opt: OptimizerConfig) -> dict:
+def train_state(model: torch.nn.Module, opt: OptimizerConfig,
+                ctx: ShardingCtx | None = None) -> dict:
+    """The model's parameters, the optimizer's zeros (ZeRO-1's blocks with
+    ``opt.zero1`` on ``ctx``'s mesh) and step 0."""
     params = dict(model.named_parameters())
-    return {"params": params, "opt": init_state(opt, params), "step": 0}
+    return {"params": params, "opt": init_state(opt, params, ctx),
+            "step": 0}
 
 
 def make_train_step(model, opt: OptimizerConfig, ctx: ShardingCtx,
@@ -78,6 +86,8 @@ def make_train_step(model, opt: OptimizerConfig, ctx: ShardingCtx,
             norm = sharded_global_norm(grads, params, ctx.mesh)
         om = apply_update(opt, params, grads, state["opt"], state["step"],
                           norm)
+        if opt.zero1 and ctx.sharded:
+            gather_zero1(params, state["opt"], ctx.mesh)
         state["step"] += 1
         return state, dict(metrics, loss=loss, **om)
 
@@ -95,23 +105,45 @@ def _rows(v, start: int, n: int):
     return part.relayout(v.place)
 
 
+# elements a bucket of small gradients holds (a larger gradient is
+# all-reduced alone, in place)
+BUCKET = 1 << 24
+
+
 @torch.no_grad()
 def sum_replicas(grads: dict, params: dict, mesh) -> dict:
     """Each gradient summed over the mesh axes its parameter is replicated
-    on: one flat all-reduce per set of axes (and dtype)."""
+    on, in place: per set of axes (and dtype), the small gradients
+    flattened into buckets of up to BUCKET elements, one all-reduce a
+    bucket, and each larger one all-reduced alone (so the step holds one
+    bucket more than its gradients, not a second copy of them)."""
     by_axes: dict[tuple, list[str]] = {}
     for k, p in params.items():
         by_axes.setdefault((replicas(p, mesh), grads[k].dtype), []).append(k)
-    out = dict(grads)
     for (axes, _), keys in by_axes.items():
         if not axes:
             continue
-        flat = torch.cat([grads[k].reshape(-1) for k in keys])
-        flat = C.all_reduce_sum(flat, mesh.group(axes))
-        for k, part in zip(keys, flat.split([grads[k].numel()
-                                             for k in keys])):
-            out[k] = part.view_as(grads[k])
-    return out
+        group = mesh.group(axes)
+        bucket: list[str] = []
+        for i, k in enumerate(keys):
+            if grads[k].numel() >= BUCKET and grads[k].is_contiguous():
+                C.all_reduce_(grads[k], group)
+                continue
+            bucket.append(k)
+            n = sum(grads[b].numel() for b in bucket)
+            if n >= BUCKET or i == len(keys) - 1:
+                _reduce_bucket([grads[b] for b in bucket], group)
+                bucket = []
+        if bucket:
+            _reduce_bucket([grads[b] for b in bucket], group)
+    return grads
+
+
+def _reduce_bucket(ts: list[torch.Tensor], group) -> None:
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    C.all_reduce_(flat, group)
+    for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+        t.copy_(part.view_as(t))
 
 
 def make_eval_step(model, ctx: ShardingCtx, **fwd_kw) -> Callable:

@@ -224,15 +224,20 @@ def test_trainer_runs_an_lm_on_the_cpu(arch):
 
 
 def test_lm_refusals_name_their_items(monkeypatch):
-    """An LM across ranks names item 6, an LM pipeline item 8, an MTP
-    model item 10; the trainer without CUDA raises."""
+    """An LM's prompt pass or decode step across ranks names item 6 (the
+    sharded serving layouts), an LM pipeline item 8, an MTP model item 10;
+    the trainer without CUDA raises."""
     cfg = get_config("qwen1.5-4b")
 
     class _Mesh:
         size, device = 4, torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        build_model(cfg, ShardingCtx("cpu", mesh=_Mesh()), smoke=True)
     lm = build_model(cfg, CPU, smoke=True)
+    across = ShardingCtx("cpu", mesh=_Mesh())
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        lm.prefill(tokens, None, across)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        lm.decode_step(tokens[:, :1], None, 8, across)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         make_pipeline_train_step(lm, OptimizerConfig(), CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
