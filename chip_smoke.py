@@ -101,6 +101,30 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              launches per rank (none: no kernel has a backward, so LM
              training runs the plain norms, attention and SSD) and the
              phase's wall time.
+  5f. lm-pipeline  the LM pipeline on the same spawn, the ranks as the
+             stages of the (1, PAR_RANKS) regrid, fp32, full widths,
+             weights from seed 0 (configs.lm_archs.LM_PIPELINE_SHAPE):
+             Qwen1.5-4B with 4 of its 40 layers at batch 4 x 512, S = 4,
+             under gpipe and one_f_one_b; Mamba-2 780m (its table tied:
+             read by the first and the last stage) with 8 of its 48 layers
+             at 4 x 1024, S = 4, under gpipe, one_f_one_b and interleaved
+             (v = 2); cut on the oracle's per-layer costs. 2 SGD steps a
+             case: the first loss, the first gradient norm and the second
+             loss against two single-process steps within PAR_LOSS_TOL
+             and PAR_STEP_TOL, with the cuts, pipeline_segments, the step
+             ms and every rank's peak memory; Fig. 3's pipeline row for
+             the Qwen at p = 4 (validate, self-calibrated; gated on
+             finiteness only) and the phase's wall time.
+  5g. summa  the 2-D SUMMA grid on the same spawn: the world as the
+             (1, 2, 2) (data, model_r, model_c) grid
+             (launch.mesh.make_grid_mesh), Qwen1.5-4B at LM_PARALLEL_SHAPE
+             under the "summa" rules, 2 SGD steps held against the
+             single-process steps [lm-parallel] computed for that shape,
+             at the same bars; the summa_matmul calls a rank (> 0, or the
+             grid never engaged), the step ms and every rank's peak; Fig.
+             3's summa row at p = 4 (validate(grid=(2, 2)),
+             self-calibrated; gated on finiteness only) and the phase's
+             wall time.
   6. serve   Qwen1.5-4B at full width in bf16, random weights from seed 0:
              a prompt pass over 4 prompts of 2048 tokens, then 32 greedy
              decode steps into a cache of 2080 positions, with use_pallas:
@@ -164,7 +188,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.cnn_archs import ORACLE_BATCH  # noqa: E402
 from repro_torch.configs.lm_archs import (LM_PARALLEL_SHAPE,  # noqa: E402
-                                          LM_TRAIN_SHAPE, lm_parallel_arch)
+                                          LM_PIPELINE_SHAPE, LM_TRAIN_SHAPE,
+                                          lm_parallel_arch)
 from repro_torch.core.calibration import calibrate_host_system  # noqa: E402
 from repro_torch.core.cluster import ClusterSpec  # noqa: E402
 from repro_torch.core.hardware import cuda_device_model  # noqa: E402
@@ -347,6 +372,21 @@ LM_PAR = (("qwen1.5-4b", ("data", "spatial", "filter", "channel", "df", "ds",
                            "ds")))
 LM_PAR_ORACLE = ("qwen1.5-4b", ("data", "filter", "channel", "spatial", "df",
                                 "ds"))
+# The lm-pipeline phase on the same spawn, the ranks as the stages of the
+# (1, PAR_RANKS) regrid: (arch, requested S, ((schedule, interleaved v),
+# ...)) at LM_PIPELINE_SHAPE (layers, global batch, seq), 2 SGD steps a
+# case, cut on the oracle's per-layer costs, held against two
+# single-process steps at the bars above (the CPU tests read ~1e-7 in the
+# smoke LMs' losses and ~1e-9 in their updated parameters). Then Fig. 3's
+# pipeline row for LM_PIPE_ORACLE at the same shape.
+LM_PIPE = (("qwen1.5-4b", 4, (("gpipe", 1), ("one_f_one_b", 1))),
+           ("mamba2-780m", 4, (("gpipe", 1), ("one_f_one_b", 1),
+                               ("interleaved", 2))))
+LM_PIPE_ORACLE = "qwen1.5-4b"
+# The summa phase on the same spawn: (arch, the (data, model_r, model_c)
+# grid) at LM_PARALLEL_SHAPE, 2 SGD steps held against the lm-parallel
+# phase's single-process steps, then Fig. 3's summa row at (r, c).
+SUMMA_RUN = ("qwen1.5-4b", (1, 2, 2))
 
 # (name, rows, D, dtype): the Qwen1.5-4B norms of a prompt pass (4 x 2048
 # tokens) and of a decode step (4 tokens), a prime row count, and the
@@ -1430,12 +1470,17 @@ def _parallel_rank(mesh, hbm_bw: float):
         torch.cuda.empty_cache()
     out["pipeline"] = _pipeline_rank(mesh, cluster)
     out["lm"] = _lm_parallel_rank(mesh)
+    out["lm_pipe"] = _lm_pipeline_rank(mesh)
+    out["summa"] = _summa_rank(mesh)
     if mesh.rank == 0:
         return out
     return {"launches": out["launches"],
             "pipeline": {"peaks": out["pipeline"]["peaks"]},
             "lm": {"peaks": out["lm"]["peaks"],
-                   "kernels": out["lm"]["kernels"]}}
+                   "kernels": out["lm"]["kernels"]},
+            "lm_pipe": {"peaks": out["lm_pipe"]["peaks"]},
+            "summa": {"peaks": out["summa"]["peaks"],
+                      "calls": out["summa"]["calls"]}}
 
 
 def _lm_batch(arch: str, dev) -> dict:
@@ -1641,6 +1686,236 @@ def _pipeline_rank(mesh22, cluster) -> dict:
     return out
 
 
+def _lm_pipe_arch(arch: str):
+    """``arch`` at LM_PIPELINE_SHAPE's layers, fp32; its whole batch."""
+    layers, batch_size, seq = LM_PIPELINE_SHAPE[arch]
+    return lm_parallel_arch(arch, layers), batch_size, seq
+
+
+def _lm_pipe_batch(arch: str, dev) -> dict:
+    cfg, batch_size, seq = _lm_pipe_arch(arch)
+    return Loader(train.data_config_for(cfg.model, batch_size, seq, seed=0),
+                  dev).batch_at(0)
+
+
+def _lm_pipeline_rank(mesh22) -> dict:
+    """One rank of the lm-pipeline phase: per LM_PIPE case the losses,
+    norms, step ms, segments and cuts of 2 SGD steps and this rank's peak
+    memory; Fig. 3's pipeline row for LM_PIPE_ORACLE."""
+    from repro_torch.parallel.schedules import (make_pipeline_train_step,
+                                                pipeline_block_costs)
+    t_phase = time.perf_counter()
+    dev = mesh22.device
+    ctx = ShardingCtx(dev, mesh=mesh22.regrid(1, PAR_RANKS))
+    whole = ShardingCtx(dev)
+    out = {"train": {}, "peaks": {}}
+    for arch, segments, schedules in LM_PIPE:
+        cfg, _, seq = _lm_pipe_arch(arch)
+        batch = _lm_pipe_batch(arch, dev)
+        for schedule, v in schedules:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = build_model(cfg, whole, seed=0)
+            opt = OptimizerConfig(name="sgd", lr=3e-3)
+            step = make_pipeline_train_step(
+                model, opt, ctx, segments=segments, schedule=schedule,
+                virtual_stages=v, q_chunk=min(256, seq),
+                block_costs=pipeline_block_costs(model, stats_for(
+                    cfg.model, seq)))
+            state = train_state(model, opt)
+            losses, norms, ms = [], [], []
+            for _ in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out["train"][arch, schedule] = (losses, norms, ms,
+                                            m["pipeline_segments"],
+                                            step.bounds)
+            out["peaks"][arch, schedule] = torch.cuda.max_memory_allocated(
+                dev)
+            del model, state, step
+        del batch
+    torch.cuda.empty_cache()
+    cfg, batch_size, seq = _lm_pipe_arch(LM_PIPE_ORACLE)
+    model = build_model(cfg, whole, seed=0)
+    batch = _lm_pipe_batch(LM_PIPE_ORACLE, dev)
+    fps = float(sum(st.flops_fwd for st in stats_for(cfg.model, seq)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out["fig3"] = (validate(model, cfg.model, batch,
+                            ShardingCtx(dev, mesh=mesh22), ["pipeline"],
+                            flops_per_sample=fps, B=batch_size, S=seq),
+                   time.perf_counter() - t0)
+    out["peaks"]["fig3"] = torch.cuda.max_memory_allocated(dev)
+    del model, batch
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _lm_pipeline_refs(dev) -> dict:
+    """Two single-process SGD steps per LM_PIPE model at its pipeline
+    shape, before the spawn; every tensor released after."""
+    refs, ctx = {}, ShardingCtx(dev)
+    for arch, _, _ in LM_PIPE:
+        cfg, _, seq = _lm_pipe_arch(arch)
+        refs[arch] = _two_sgd_steps(cfg, ctx, _lm_pipe_batch(arch, dev),
+                                    q_chunk=min(256, seq))
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _report_lm_pipeline(results, refs, seconds):
+    """Prints and gates the lm-pipeline phase (see the module docstring,
+    5f)."""
+    r0 = results[0]["lm_pipe"]
+    print(f"[lm-pipeline] mesh (data=1, model={PAR_RANKS}): the [parallel] "
+          f"world regridded, every rank a stage, sharing the card over gloo; "
+          + "; ".join(f"{a}: {n} layers at full width, fp32, batch {b} x "
+                      f"seq {q}"
+                      for a, (n, b, q) in LM_PIPELINE_SHAPE.items()),
+          flush=True)
+    bars = (PAR_LOSS_TOL, PAR_STEP_TOL, PAR_STEP_TOL)
+    for (arch, schedule), (losses, norms, ms, S, bounds) in r0[
+            "train"].items():
+        got, want = (losses[0], norms[0], losses[1]), refs[arch]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        segments = next(s for a, s, _ in LM_PIPE if a == arch)
+        peaks = [r["lm_pipe"]["peaks"][arch, schedule] / 2 ** 30
+                 for r in results]
+        print(f"[lm-pipeline] train {arch} {schedule} pipeline_segments={S} "
+              f"cuts={bounds} losses={','.join(f'{v:.7g}' for v in losses)} "
+              f"grad_norm_step1={norms[0]:.7g} single_process: "
+              f"loss1={want[0]:.7g} grad_norm1={want[1]:.7g} "
+              f"loss2={want[2]:.7g} rel_diff: loss1={rel[0]:.3g} (bar "
+              f"{bars[0]}) grad_norm1={rel[1]:.3g} loss2={rel[2]:.3g} (bar "
+              f"{bars[1]}) step_ms={','.join(f'{v:.5g}' for v in ms)} "
+              f"peak_GiB_per_rank={','.join(f'{v:.4g}' for v in peaks)}",
+              flush=True)
+        if S != segments or not all(math.isfinite(v) for v in got) or any(
+                r > bar for r, bar in zip(rel, bars)):
+            fail(f"[lm-pipeline] {arch} {schedule}: S={S} (want "
+                 f"{segments}), (loss1, grad_norm1, loss2) {got} against "
+                 f"the single-process {want}: {rel} relative (bars {bars})")
+    pts, t_val = r0["fig3"]
+    _, batch_size, seq = LM_PIPELINE_SHAPE[LM_PIPE_ORACLE]
+    tag = f"[lm-pipeline] fig3 p={PAR_RANKS} {LM_PIPE_ORACLE} " \
+          f"batch={batch_size} seq={seq}"
+    lines = accuracy_report(pts).splitlines()
+    print(f"{tag} self-calibrated ({t_val:.4g} s) {lines[0]}", flush=True)
+    for line in lines[1:-1]:
+        print(f"{tag} {line}", flush=True)
+    if [pt.strategy for pt in pts] != ["pipeline"] or not all(
+            math.isfinite(t) and t > 0 for pt in pts for t in (
+                pt.measured_s, pt.projected_s, pt.projected_serial_s)):
+        fail(f"[lm-pipeline] fig3: {pts}")
+    peaks = [r["lm_pipe"]["peaks"]["fig3"] / 2 ** 30 for r in results]
+    print(f"{tag} peak_GiB_per_rank={','.join(f'{v:.4g}' for v in peaks)} "
+          f"(reported, not gated)", flush=True)
+    print(f"[lm-pipeline] phase wall time {seconds:.4g} s (single-process "
+          f"references and the spawn's lm-pipeline part)", flush=True)
+
+
+def _summa_rank(mesh22) -> dict:
+    """One rank of the summa phase: the losses, norms and step ms of 2 SGD
+    steps on the grid, this rank's summa_matmul calls and peak memory;
+    Fig. 3's summa row."""
+    from repro_torch.launch.build import shard_batch
+    from repro_torch.launch.mesh import make_grid_mesh
+    from repro_torch.parallel import summa
+    from repro_torch.parallel.strategies import make_rules
+    t_phase = time.perf_counter()
+    dev = mesh22.device
+    arch, grid = SUMMA_RUN
+    cfg, seq = lm_parallel_arch(arch), LM_PARALLEL_SHAPE[arch][2]
+    ctx = ShardingCtx(dev, mesh=make_grid_mesh(mesh22, *grid),
+                      rules=make_rules("summa"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, ctx, seed=0)
+    opt = OptimizerConfig(name="sgd", lr=3e-3)
+    step = make_train_step(model, opt, ctx, q_chunk=min(256, seq))
+    state, batch = train_state(model, opt), shard_batch(_lm_batch(arch, dev),
+                                                        ctx)
+    summa.summa_matmul.calls = 0
+    losses, norms, ms = [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"train": (losses, norms, ms), "calls": summa.summa_matmul.calls,
+           "peaks": {"train": torch.cuda.max_memory_allocated(dev)}}
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    model = build_model(cfg, ShardingCtx(dev), seed=0)
+    fps = float(sum(st.flops_fwd for st in stats_for(cfg.model, seq)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out["fig3"] = (validate(model, cfg.model, _lm_batch(arch, dev),
+                            ShardingCtx(dev, mesh=mesh22), ["summa"],
+                            flops_per_sample=fps,
+                            B=LM_PARALLEL_SHAPE[arch][1], S=seq,
+                            grid=grid[1:]), time.perf_counter() - t0)
+    out["peaks"]["fig3"] = torch.cuda.max_memory_allocated(dev)
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _report_summa(results, refs, seconds):
+    """Prints and gates the summa phase (see the module docstring, 5g):
+    the steps against the lm-parallel phase's single-process steps."""
+    r0 = results[0]["summa"]
+    arch, grid = SUMMA_RUN
+    layers, batch_size, seq = LM_PARALLEL_SHAPE[arch]
+    losses, norms, ms = r0["train"]
+    got, want = (losses[0], norms[0], losses[1]), refs[arch]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    bars = (PAR_LOSS_TOL, PAR_STEP_TOL, PAR_STEP_TOL)
+    calls = [r["summa"]["calls"] for r in results]
+    peaks = [r["summa"]["peaks"]["train"] / 2 ** 30 for r in results]
+    print(f"[summa] grid (data, model_r, model_c)={grid}, the [parallel] "
+          f"world regridded, sharing the card over gloo; {arch}: {layers} "
+          f"layers at full width, fp32, batch {batch_size} x seq {seq}, "
+          f"summa rules", flush=True)
+    print(f"[summa] train {arch} losses={','.join(f'{v:.7g}' for v in losses)}"
+          f" grad_norm_step1={norms[0]:.7g} single_process: loss1="
+          f"{want[0]:.7g} grad_norm1={want[1]:.7g} loss2={want[2]:.7g} "
+          f"rel_diff: loss1={rel[0]:.3g} (bar {bars[0]}) grad_norm1="
+          f"{rel[1]:.3g} loss2={rel[2]:.3g} (bar {bars[1]}) step_ms="
+          f"{','.join(f'{v:.5g}' for v in ms)} summa_matmul_calls_per_rank="
+          f"{calls} peak_GiB_per_rank={','.join(f'{v:.4g}' for v in peaks)}",
+          flush=True)
+    if min(calls) <= 0 or not all(math.isfinite(v) for v in got) or any(
+            r > bar for r, bar in zip(rel, bars)):
+        fail(f"[summa] {arch}: summa_matmul calls {calls}, (loss1, "
+             f"grad_norm1, loss2) {got} against the single-process {want}: "
+             f"{rel} relative (bars {bars})")
+    pts, t_val = r0["fig3"]
+    tag = f"[summa] fig3 p={PAR_RANKS} {arch} grid={grid[1:]} " \
+          f"batch={batch_size} seq={seq}"
+    lines = accuracy_report(pts).splitlines()
+    print(f"{tag} self-calibrated ({t_val:.4g} s) {lines[0]}", flush=True)
+    for line in lines[1:-1]:
+        print(f"{tag} {line}", flush=True)
+    if [pt.strategy for pt in pts] != ["summa"] or not all(
+            math.isfinite(t) and t > 0 for pt in pts for t in (
+                pt.measured_s, pt.projected_s, pt.projected_serial_s)):
+        fail(f"[summa] fig3: {pts}")
+    peaks = [r["summa"]["peaks"]["fig3"] / 2 ** 30 for r in results]
+    print(f"{tag} peak_GiB_per_rank={','.join(f'{v:.4g}' for v in peaks)} "
+          f"(reported, not gated)", flush=True)
+    print(f"[summa] phase wall time {seconds:.4g} s (the spawn's summa part; "
+          f"its references are [lm-parallel]'s)", flush=True)
+
+
 def _two_sgd_steps(cfg, ctx, batch, accum: int = 1, **fwd_kw) -> tuple:
     """Two SGD steps of a model from seed 0 (``accum`` microbatches a
     step): (first loss, the first step's gradient norm before clipping,
@@ -1696,6 +1971,9 @@ def phase_parallel(dev, hbm_bw: float) -> int:
     t0 = time.perf_counter()
     refs["lm"] = _lm_parallel_refs(dev)
     t_lm_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs["lm_pipe"] = _lm_pipeline_refs(dev)
+    t_lm_pipe_ref = time.perf_counter() - t0
     from repro_torch.launch.spawn import run_ranks
     results = run_ranks(_parallel_rank, PAR_RANKS, hbm_bw, backend="gloo",
                         device="cuda", model=PAR_MODEL, timeout_s=900)
@@ -1781,11 +2059,16 @@ def phase_parallel(dev, hbm_bw: float) -> int:
           f"{note}; reported, not gated)", flush=True)
     t_pipe = t_pipe_ref + r0["pipeline"]["seconds"]
     t_lm = t_lm_ref + r0["lm"]["seconds"]
-    print(f"[parallel] phase wall time "
-          f"{time.perf_counter() - t_phase - t_pipe - t_lm:.4g} s (the "
-          f"pipeline and lm-parallel phases' parts excluded)", flush=True)
+    t_lm_pipe = t_lm_pipe_ref + r0["lm_pipe"]["seconds"]
+    t_summa = r0["summa"]["seconds"]
+    own = time.perf_counter() - t_phase - t_pipe - t_lm - t_lm_pipe - t_summa
+    print(f"[parallel] phase wall time {own:.4g} s (the pipeline, "
+          f"lm-parallel, lm-pipeline and summa phases' parts excluded)",
+          flush=True)
     _report_pipeline(results, refs["pipe"], rows, note, t_pipe, cluster)
     _report_lm_parallel(results, refs["lm"], t_lm)
+    _report_lm_pipeline(results, refs["lm_pipe"], t_lm_pipe)
+    _report_summa(results, refs["lm"], t_summa)
     return total
 
 

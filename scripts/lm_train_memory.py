@@ -29,11 +29,28 @@ with a stand-in mesh (the collectives only give shapes there). The
 collectives' buffers are transient and not counted; nor are the
 backward's temporaries (the logits' gradient is as large as the logits)
 or the update's (one parameter-sized temporary at a time).
+
+    PYTHONPATH=src python scripts/lm_train_memory.py --arch qwen1.5-4b \
+        --pipeline --grid
+
+With ``--pipeline``: the model and shape of chip_smoke.py's lm-pipeline
+phase (``configs.lm_archs.LM_PIPELINE_SHAPE``, 4 stages, S = 4
+microbatches, cut on the oracle's per-layer costs), each stage's share:
+every rank holds the whole model and SGD momentum (the train state is
+whole on every rank), the gradients of what it owns, and what its layers
+save for the backward per microbatch in flight (gpipe: all S; 1F1B: p − r
+on stage r), the first stage's embedding and the last stage's head and
+logits included. With ``--grid`` (an attention LM): one rank of the
+(1, 2, 2) SUMMA grid under the "summa" table at the lm-parallel shape:
+parameter blocks of about 1/(r·c), their gradients and momentum, and what
+the forward saves beyond them (the gathered activations and the weight
+panels each SUMMA product keeps for its backward).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import sys
 from pathlib import Path
 
@@ -43,13 +60,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.lm_archs import (LM_PARALLEL_SHAPE,  # noqa: E402
+                                          LM_PIPELINE_SHAPE,
                                           lm_parallel_arch)
+from repro_torch.core.layer_stats import stats_for  # noqa: E402
+from repro_torch.core.partition import min_max_partition  # noqa: E402
 from repro_torch.launch.mesh import Group  # noqa: E402
-from repro_torch.models.transformer import TransformerLM  # noqa: E402
+from repro_torch.models.transformer import TransformerLM, _xent  # noqa: E402
 from repro_torch.nn.module import ShardingCtx  # noqa: E402
 from repro_torch.optim.optimizers import (OptimizerConfig,  # noqa: E402
                                           init_state)
 from repro_torch.parallel.sharded import Sharded, placement  # noqa: E402
+from repro_torch.parallel.schedules import pipeline_block_costs  # noqa: E402
 from repro_torch.parallel.sharded import shard_params  # noqa: E402
 from repro_torch.parallel.strategies import make_rules  # noqa: E402
 
@@ -77,12 +98,13 @@ def saved_bytes(fn, skip=()) -> tuple[int, dict]:
 
 
 class MetaMesh:
-    """Rank 0 of a (data, model) mesh of ranks that do not exist: what the
-    layers read of a mesh, for a forward on ``meta``."""
+    """Rank 0 of a mesh of ranks that do not exist (("data", "model"), or
+    the axes given): what the layers read of a mesh, for a forward on
+    ``meta``."""
 
-    def __init__(self, data: int, model: int):
-        self.shape = {"data": data, "model": model}
-        self.size, self.rank = data * model, 0
+    def __init__(self, *dims: int, axes=("data", "model")):
+        self.shape = dict(zip(axes, dims))
+        self.size, self.rank = math.prod(dims), 0
         self.device = self.host_device = torch.device("cpu")
 
     def coord(self, axis: str) -> int:
@@ -116,6 +138,44 @@ def rank_bytes(arch: str, strategy: str, mesh: MetaMesh) -> dict:
             "saved": saved}
 
 
+def pipeline_bytes(arch: str, p: int = 4, segments: int = 4) -> list[dict]:
+    """Each stage's bytes at LM_PIPELINE_SHAPE (see the module
+    docstring)."""
+    layers, batch, seq = LM_PIPELINE_SHAPE[arch]
+    mc = lm_parallel_arch(arch, layers).model
+    model = TransformerLM(mc, device=META, generator=None)
+    ctx, mb = ShardingCtx("cpu"), batch // segments
+    tokens = torch.zeros((mb, seq), dtype=torch.int32, device=META)
+    h = model._embed(tokens, ctx).detach().requires_grad_()
+    weights = list(model.parameters())
+    per_layer = [saved_bytes(lambda blk=blk: blk(h, ctx, min(256, seq)),
+                             weights)[0] for blk in model.blocks]
+    head = saved_bytes(lambda: _xent(model._logits(h, ctx), tokens),
+                       weights)[0]
+    bounds = min_max_partition(pipeline_block_costs(
+        model, stats_for(mc, seq)), p).bounds
+    nbytes = {k: t.numel() * t.element_size()
+              for k, t in model.named_parameters()}
+    out = []
+    for r in range(p):
+        own = tuple(f"blocks.{j}." for j in range(bounds[r], bounds[r + 1]))
+        if r == 0:
+            own += ("embed.",)
+        if r == p - 1:
+            own += ("final_norm.", "head") + (
+                ("embed.",) if mc.tie_embeddings else ())
+        saved = sum(per_layer[bounds[r]:bounds[r + 1]]) + (
+            head if r == p - 1 else 0)
+        out.append({"layers": bounds[r + 1] - bounds[r],
+                    "weights": sum(nbytes.values()),
+                    "momentum": sum(nbytes.values()),
+                    "grads": sum(b for k, b in nbytes.items()
+                                 if k.startswith(own)),
+                    "saved_gpipe": segments * saved,
+                    "saved_1f1b": min(p - r, segments) * saved})
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-4b",
@@ -125,7 +185,32 @@ def main(argv=None) -> None:
     ap.add_argument("--strategies", default=None,
                     help="comma-separated rules tables: one rank's bytes "
                          "at the lm-parallel shape under each")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="each stage's bytes at the lm-pipeline shape")
+    ap.add_argument("--grid", action="store_true",
+                    help="one rank's bytes on the (1, 2, 2) SUMMA grid")
     args = ap.parse_args(argv)
+    if args.pipeline:
+        layers, batch, seq = LM_PIPELINE_SHAPE[args.arch]
+        print(f"{args.arch} {layers} layers fp32 batch={batch} seq={seq}, "
+              f"4 stages, S=4, GB:")
+        for r, b in enumerate(pipeline_bytes(args.arch)):
+            fixed = b["weights"] + b["momentum"] + b["grads"]
+            print(f"  stage {r} " + " ".join(
+                f"{k}={v / 1e9:.4g}" if k != "layers" else f"{k}={v}"
+                for k, v in b.items())
+                + f" sum_gpipe={(fixed + b['saved_gpipe']) / 1e9:.4g}"
+                f" sum_1f1b={(fixed + b['saved_1f1b']) / 1e9:.4g}")
+    if args.grid:
+        layers, batch, seq = LM_PARALLEL_SHAPE[args.arch]
+        b = rank_bytes(args.arch, "summa",
+                       MetaMesh(1, 2, 2, axes=("data", "model_r", "model_c")))
+        print(f"{args.arch} {layers} layers fp32 batch={batch} seq={seq}, "
+              f"one rank of the (1, 2, 2) grid under summa, GB: "
+              + " ".join(f"{k}={v / 1e9:.4g}" for k, v in b.items())
+              + f" sum={sum(b.values()) / 1e9:.4g}")
+    if args.pipeline or args.grid:
+        return
     if args.strategies:
         layers, batch, seq = LM_PARALLEL_SHAPE[args.arch]
         mesh = MetaMesh(2, 2)

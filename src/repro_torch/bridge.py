@@ -3,9 +3,15 @@
 The JAX package's trees are nested dicts/lists; pass them with numpy leaves
 (``jax.tree.map(np.asarray, params)``). A leaf at path ``blocks/3/conv2/w``
 lands in the port's parameter ``blocks.3.conv2.w``. The JAX LMs stack their
-layers: leaf ``stacks/p/X`` holds, at index g, layer g·period + p (period =
-the number of pattern positions), which lands in the port's per-layer
-``blocks.<layer>.X``. Both packages keep the same layouts, so every leaf is
+layers as ``TransformerLM._groups`` lays them out: leaf ``stacks/p/X``
+holds, at index g, layer g·period + p (period = the number of pattern
+positions), and a pattern that does not divide the layers leaves a
+remainder, ``tail/r/X``, layer n_groups·period + r (n_groups = n_layers //
+period, every stack's length); each lands in the port's per-layer
+``blocks.<layer>.X``. The reference's ``lead`` (``first_k_dense`` leading
+dense layers, unstacked) has no counterpart: the port's ``LMConfig`` has no
+such field, which comes with DeepSeek-V3 (ROADMAP queue 1 item 10), so a
+``lead`` leaf is an extra leaf and raises. Both packages keep the same layouts, so every leaf is
 copied as it is, never transposed; bf16 leaves (numpy arrays of
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) go through their
 16-bit pattern. Any leaf that is missing, extra, or of the wrong shape or
@@ -48,11 +54,17 @@ def _unstack_layers(leaves: dict[str, Any]) -> dict[str, Any]:
     if not stacked:
         return leaves
     period = 1 + max(int(k.split(".")[1]) for k in stacked)
-    out = {k: v for k, v in leaves.items() if not k.startswith("stacks.")}
+    n_groups = np.shape(leaves[stacked[0]])[0]
+    out = {k: v for k, v in leaves.items()
+           if not k.startswith(("stacks.", "tail."))}
     for k in stacked:
         _, pos, rest = k.split(".", 2)
         for g in range(np.shape(leaves[k])[0]):
             out[f"blocks.{g * period + int(pos)}.{rest}"] = leaves[k][g]
+    for k in leaves:
+        if k.startswith("tail."):
+            _, r, rest = k.split(".", 2)
+            out[f"blocks.{n_groups * period + int(r)}.{rest}"] = leaves[k]
     return out
 
 

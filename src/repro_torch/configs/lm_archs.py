@@ -32,16 +32,24 @@ LM_TRAIN_SHAPE = {"qwen1.5-4b": (2, 512), "mamba2-780m": (2, 1024)}
 # 389 M each, dominate).
 LM_PARALLEL_SHAPE = {"qwen1.5-4b": (2, 4, 512), "mamba2-780m": (2, 4, 1024)}
 
+# The LM pipeline across the same 4 ranks (chip_smoke.py's lm-pipeline
+# phase, scripts/lm_train_memory.py --pipeline): (layers, global batch,
+# seq), fp32, published widths; the layers cut so that 4 stages each run
+# at least one (the Mamba's 8 hold interleaved v = 2's 8 chunks). Every
+# rank holds the whole model; the layers are cut for time, not memory.
+LM_PIPELINE_SHAPE = {"qwen1.5-4b": (4, 4, 512), "mamba2-780m": (8, 4, 1024)}
 
-def lm_parallel_arch(arch: str) -> ArchConfig:
-    """``arch`` with its full model cut to LM_PARALLEL_SHAPE's layers and
-    every dtype fp32."""
+
+def lm_parallel_arch(arch: str, layers: int | None = None) -> ArchConfig:
+    """``arch`` with its full model cut to ``layers`` (default:
+    LM_PARALLEL_SHAPE's) and every dtype fp32."""
     cfg = get_config(arch)
     mc = cfg.model
     sub = {k: dataclasses.replace(getattr(mc, k), dtype=torch.float32)
            for k in ("attn", "ffn", "ssm") if getattr(mc, k) is not None}
-    mc = dataclasses.replace(mc, n_layers=LM_PARALLEL_SHAPE[arch][0],
-                             dtype=torch.float32, **sub)
+    mc = dataclasses.replace(
+        mc, n_layers=layers or LM_PARALLEL_SHAPE[arch][0],
+        dtype=torch.float32, **sub)
     return dataclasses.replace(cfg, model=mc)
 
 

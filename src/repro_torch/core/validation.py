@@ -15,9 +15,15 @@ in the reference,
 "spatial" is measured under the "ds" rules on the whole (data, model) mesh
 but projected as pure spatial parallelism at p. "pipeline" runs the stage
 executor (``parallel/schedules``) with all p ranks as stages of a (1, p)
-mesh over the same world, the paper's pure layer strategy. "summa" and
-"ep" raise, each naming its ROADMAP item. ``measure_serving`` replays a
-request trace through the serving engine on one device.
+mesh over the same world, the paper's pure layer strategy, for the CNNs
+and the LMs (an LM cut on its per-layer costs at the batch's sequence
+length). "summa" runs an attention LM's step under the "summa" table on
+the (p/(r·c), r, c) grid of ``grid`` = (r, c) over the same world
+(``launch.mesh.make_grid_mesh``) and projects it at p1 = p/(r·c),
+p2 = r·c, p2r = r, p2c = c, as the reference does; a CNN or an SSM model
+there raises (ROADMAP queue 1 item 8). "ep" raises, naming its ROADMAP
+item. ``measure_serving`` replays a request trace through the serving
+engine on one device.
 
 The reference's ``validate`` never measures the pipeline on a CNN: it
 bounds the stage count by ``cfg.n_layers``, which the CNN configs lack, so
@@ -34,10 +40,12 @@ from dataclasses import dataclass, replace
 import numpy as np
 
 from ..launch.build import shard_batch
+from ..launch.mesh import make_grid_mesh
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
 from ..parallel.sharded import sharded_copy
 from ..parallel.strategies import make_rules
+from ..parallel.summa import summa_supported
 from ..training.steps import make_train_step, train_state
 from .calibration import _slowest, calibrate_host_system, time_fn
 from .layer_stats import stats_for
@@ -58,8 +66,6 @@ EXEC_STRATEGY = {
 # mapped strategies the port does not run yet, and where they are queued
 NOT_PORTED = {
     "ep": "expert parallelism needs MoE (ROADMAP queue 1 item 10)",
-    "summa": "the 2-D tensor grid is parallel/summa.py (ROADMAP queue 1 "
-             "item 8)",
 }
 
 # oracle strategies with NO executable path, and why (so validate() skips
@@ -95,7 +101,8 @@ class ValidationPoint:
 
 def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
                  segments: int = 8, schedule: str = "gpipe",
-                 virtual_stages: int = 2) -> float:
+                 virtual_stages: int = 2,
+                 grid: tuple[int, int] | None = None) -> float:
     """Measured per-iteration time of a real train step (SGD, the port's
     ``make_train_step``) on ``ctx.device``: the median of 4 steps after 2
     warm-up steps (``time_fn``).
@@ -110,7 +117,12 @@ def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
     "pipeline" runs ``make_pipeline_train_step`` on a copy of the model, all
     p ranks as stages of a (1, p) mesh (``Mesh.regrid``), under
     ``schedule`` with ``segments`` microbatches (``virtual_stages``: the
-    interleaved v), cut by the block costs of the oracle's layer stats."""
+    interleaved v), cut by the block costs of the oracle's layer stats (an
+    LM's at its batch's sequence length).
+
+    "summa" runs the step on the (p/(r·c), r, c) grid of the same world,
+    ``grid`` = (r, c), under the "summa" rules: an attention LM's
+    projections as SUMMA (``parallel/summa.py``)."""
     if strategy in EXEC_SKIP:
         raise NotImplementedError(
             f"oracle strategy {strategy!r} is not executable: "
@@ -135,27 +147,44 @@ def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
             f"oracle strategy {strategy!r} is not ported: "
             f"{NOT_PORTED[strategy]}")
     if strategy == "pipeline":
-        from ..parallel.schedules import make_pipeline_train_step
+        from ..parallel.schedules import (make_pipeline_train_step,
+                                          pipeline_block_costs)
         mesh = ctx.mesh.regrid(1, ctx.mesh.size)
         local = copy.deepcopy(model)
+        costs = None
+        if "tokens" in batch:
+            costs = pipeline_block_costs(local, stats_for(
+                model.cfg, batch["tokens"].shape[1]))
         step = make_pipeline_train_step(
             local, opt, replace(ctx, mesh=mesh, rules=make_rules("pipeline")),
             segments=segments, schedule=schedule,
-            virtual_stages=virtual_stages)
+            virtual_stages=virtual_stages, block_costs=costs)
         t = time_fn(step, train_state(local, opt), batch, device=ctx.device,
                     iters=4, warmup=2)
         return _slowest(t, mesh)
-    ctx_s = replace(ctx, rules=make_rules(EXEC_STRATEGY[strategy]))
+    mesh = ctx.mesh
+    if strategy == "summa":
+        reason = summa_supported(model)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        if grid is None:
+            raise ValueError("summa needs grid=(p2r, p2c)")
+        r, c = grid
+        if mesh.size % (r * c):
+            raise ValueError(f"grid {r}x{c} does not divide p={mesh.size}")
+        mesh = make_grid_mesh(mesh, mesh.size // (r * c), r, c)
+    ctx_s = replace(ctx, mesh=mesh, rules=make_rules(EXEC_STRATEGY[strategy]))
     local = sharded_copy(model, ctx_s)
     step = make_train_step(local, opt, ctx_s)
     t = time_fn(step, train_state(local, opt), shard_batch(batch, ctx_s),
                 device=ctx.device, iters=4, warmup=2)
-    return _slowest(t, ctx.mesh)
+    return _slowest(t, mesh)
 
 
 def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
              flops_per_sample: float, B: int, S: int = 128,
-             cluster=None) -> list[ValidationPoint]:
+             cluster=None,
+             grid: tuple[int, int] | None = None) -> list[ValidationPoint]:
     """Measure + project each strategy at p = the mesh's rank count (1
     without one) on ``ctx.device``; paper Fig. 3. ``S``: an LM's tokens a
     sequence, for its layer stats (a CNN's ignore it).
@@ -170,7 +199,9 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
     projections then use it. Without it, the device is calibrated here on
     ``model`` itself (``calibrate_host_system``, with α/β per mesh axis),
     the reference's default; ranks that timeshare a device (a mesh on one
-    card, or the CPU) get 1/p of its measured rate, as in the reference."""
+    card, or the CPU) get 1/p of its measured rate, as in the reference.
+    ``grid``: (p2r, p2c) for "summa", measured on that grid of the same
+    world and projected at the matching lattice point."""
     stats = stats_for(model_cfg, S)
     p = ctx.mesh.size if ctx.sharded else 1
     if cluster is None:
@@ -202,10 +233,14 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
                 print(f"validate: skipping pipeline — {reason}")
                 continue
             cfg_s = replace(cfg, segments=clip_segments(B, cfg.segments))
-        meas = measure_step(model, batch, ctx, s, segments=cfg_s.segments)
+        meas = measure_step(model, batch, ctx, s, segments=cfg_s.segments,
+                            grid=grid)
         pkw = {}
         if s in ("df", "ds", "ep"):
             pkw = dict(p1=ctx.mesh.shape["data"], p2=ctx.mesh.shape["model"])
+        elif s == "summa":
+            r, c = grid
+            pkw = dict(p1=p // (r * c), p2=r * c, p2r=r, p2c=c)
         proj = project(s, stats, tm, cfg_s, p, **pkw)
         serial = project(s, stats, tm, replace(cfg_s, overlap=False), p,
                          **pkw)

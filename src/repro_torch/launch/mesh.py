@@ -1,12 +1,17 @@
 """Meshes of ranks on ``torch.distributed`` (counterpart of
 ``repro.launch.mesh``).
 
-A ``Mesh`` lays the initialised world out as a ("data", "model")
-``DeviceMesh`` (``init_device_mesh``), rank ``r`` at (r // model,
-r % model), as the reference's ``make_host_mesh`` lays out its devices, and
-gives the process group of each ordered subset of its axes (``group``): the
-ranks that share every other coordinate, in row-major order of the subset's
-coordinates.
+A ``Mesh`` lays the initialised world out as a ("data", "model") grid,
+rank ``r`` at (r // model, r % model), as the reference's
+``make_host_mesh`` lays out its devices, and gives the process group of
+each ordered subset of its axes (``group``): the ranks that share every
+other coordinate, in row-major order of the subset's coordinates. Every
+group is made when the mesh is (``torch.distributed.new_group``, which
+every rank calls in the same order). ``make_grid_mesh`` lays the same
+world out as the ("data", "model_r", "model_c") grid of the 2-D SUMMA
+strategy (``parallel/summa.py``), the counterpart of the reference's
+``make_grid_mesh(p1, p2r, p2c)``: rank ``r`` at row-major coordinates
+again, and a group for each axis and each ordered tuple of axes.
 
 The transport is an argument, never a fallback:
 
@@ -23,17 +28,19 @@ sets the same variables (``spawn_env``).
 """
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import socket
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import init_device_mesh
 
 from ..nn.module import resolve_device
 
 AXES = ("data", "model")
+GRID_AXES = ("data", "model_r", "model_c")
 BACKENDS = ("gloo", "nccl")
 
 
@@ -54,43 +61,53 @@ class Group:
 
 
 class Mesh:
-    """The world as a ("data", "model") grid; ``shape`` maps each axis to its
-    extent, as a JAX mesh's does."""
+    """The world as a grid over ``axes`` (("data", "model") unless told
+    otherwise); ``shape`` maps each axis to its extent, as a JAX mesh's
+    does."""
 
-    def __init__(self, data: int, model: int, *, backend: str,
-                 device: torch.device):
+    def __init__(self, *dims: int, backend: str, device: torch.device,
+                 axes: tuple[str, ...] = AXES):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: the port takes "
                              f"{BACKENDS}")
         if not dist.is_initialized():
             raise RuntimeError("torch.distributed is not initialised; call "
                                "init_from_env (torchrun sets its variables)")
+        if len(dims) != len(axes):
+            raise ValueError(f"extents {dims} for axes {axes}")
         world, rank = dist.get_world_size(), dist.get_rank()
-        if data * model != world:
-            raise ValueError(f"mesh {data}x{model} does not cover the world "
-                             f"of {world} ranks")
+        if math.prod(dims) != world:
+            raise ValueError(f"mesh {'x'.join(map(str, dims))} does not "
+                             f"cover the world of {world} ranks")
         if dist.get_backend() != backend:
             raise ValueError(f"the world runs {dist.get_backend()}, not "
                              f"{backend}")
-        self.shape = {"data": data, "model": model}
+        self.axes = tuple(axes)
+        self.shape = dict(zip(self.axes, dims))
         self.size = world
         self.rank = rank
         self.backend = backend
         self.device = device
-        self._coords = {"data": rank // model, "model": rank % model}
-        # gloo moves CUDA tensors through the host, so its mesh is a host
-        # mesh (which also keeps DeviceMesh from picking a card per rank)
-        self.device_mesh = init_device_mesh(
-            "cuda" if backend == "nccl" else "cpu", (data, model),
-            mesh_dim_names=AXES)
+        coords = list(itertools.product(*(range(n) for n in dims)))
+        self._coords = dict(zip(self.axes, coords[rank]))
         stage = backend == "gloo" and device.type == "cuda"
-        self._groups = {AXES: Group(dist.group.WORLD, tuple(range(world)),
-                                    rank, stage)}
-        for axis in AXES:
-            pg = self.device_mesh.get_group(axis)
-            ranks = tuple(dist.get_process_group_ranks(pg))
-            self._groups[(axis,)] = Group(pg, ranks, ranks.index(rank), stage)
-        self._regrids = {(data, model): self}
+        self._groups = {self.axes: Group(dist.group.WORLD,
+                                         tuple(range(world)), rank, stage)}
+        for n in range(1, len(self.axes)):
+            for sub in itertools.combinations(range(len(self.axes)), n):
+                # the ranks that share every other coordinate, one new_group
+                # each (every rank makes every group, in the same order)
+                parts: dict[tuple, list[int]] = {}
+                for r, c in enumerate(coords):
+                    rest = tuple(c[i] for i in range(len(dims))
+                                 if i not in sub)
+                    parts.setdefault(rest, []).append(r)
+                for ranks in parts.values():
+                    pg = dist.new_group(ranks)
+                    if rank in ranks:
+                        self._groups[tuple(self.axes[i] for i in sub)] = \
+                            Group(pg, tuple(ranks), ranks.index(rank), stage)
+        self._regrids = {(self.axes, tuple(dims)): self}
 
     @property
     def host_device(self) -> torch.device:
@@ -107,23 +124,36 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         if axes not in self._groups:
             raise ValueError(f"no group over {axes}: the mesh's axes are "
-                             f"{AXES}, taken in that order")
+                             f"{self.axes}, taken in that order")
         return self._groups[axes]
+
+    def _regridded(self, dims: tuple[int, ...], axes: tuple[str, ...]
+                   ) -> "Mesh":
+        key = (axes, tuple(int(n) for n in dims))
+        if key not in self._regrids:
+            mesh = Mesh(*key[1], backend=self.backend, device=self.device,
+                        axes=axes)
+            mesh._regrids = self._regrids
+            self._regrids[key] = mesh
+        return self._regrids[key]
 
     def regrid(self, data: int, model: int) -> "Mesh":
         """The same world as a (data, model) grid of another split, made on
         the first call for that split and kept (a new grid makes process
         groups: every rank calls this, in the same order)."""
-        if (data, model) not in self._regrids:
-            mesh = Mesh(data, model, backend=self.backend, device=self.device)
-            mesh._regrids = self._regrids
-            self._regrids[data, model] = mesh
-        return self._regrids[data, model]
+        return self._regridded((data, model), AXES)
 
     def __repr__(self):
-        return (f"Mesh(data={self.shape['data']}, "
-                f"model={self.shape['model']}, backend={self.backend}, "
-                f"device={self.device})")
+        dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"Mesh({dims}, backend={self.backend}, device={self.device})"
+
+
+def make_grid_mesh(mesh: Mesh, p1: int, p2r: int, p2c: int) -> Mesh:
+    """``mesh``'s world as the (data, model_r, model_c) = (p1, p2r, p2c)
+    grid of the SUMMA strategy, made on the first call for that split and
+    kept, as ``Mesh.regrid`` keeps its grids (every rank calls it, in the
+    same order)."""
+    return mesh._regridded((p1, p2r, p2c), GRID_AXES)
 
 
 def default_split(n: int, model: int | None = None) -> tuple[int, int]:

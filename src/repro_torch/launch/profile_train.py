@@ -4,7 +4,8 @@ sharded CNN step.
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         [--arch resnet50|resnet152|vgg16|cosmoflow|qwen1.5-4b|mamba2-780m]
         [--strategies data,ds]   (an LM: data,spatial,filter,channel,df,
-                                  ds,df_zero1,df_zero3)
+                                  ds,df_zero1,df_zero3, and summa for the
+                                  Qwen)
         [--strategies pipeline --schedule gpipe|one_f_one_b|interleaved]
 
 Builds the CNN at its full config (fp32, TF32 off, random weights from seed
@@ -15,7 +16,9 @@ with ``torch.profiler`` (CPU and CUDA activities). The batch is the model's
 An LM (bf16, full width) takes the trainer's AdamW step at its
 ``configs.lm_archs.LM_TRAIN_SHAPE`` (batch, seq), as in ``chip_smoke.py``'s
 lm-train phase, on one device; across ranks, the SGD step of the
-lm-parallel phase (``LM_PARALLEL_SHAPE``: full widths, 2 layers, fp32).
+lm-parallel phase (``LM_PARALLEL_SHAPE``: full widths, 2 layers, fp32),
+"summa" on the (1, 2, 2) grid of the summa phase, and "pipeline" at the
+lm-pipeline phase's ``LM_PIPELINE_SHAPE`` (cut on the per-layer costs).
 Imports nothing of jax or of the JAX package; needs CUDA.
 
 Without ``--strategies``: one process on the card. Prints, as
@@ -48,15 +51,18 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..configs.cnn_archs import ORACLE_BATCH
-from ..configs.lm_archs import (LM_PARALLEL_SHAPE, LM_TRAIN_SHAPE,
-                                lm_parallel_arch)
+from ..configs.lm_archs import (LM_PARALLEL_SHAPE, LM_PIPELINE_SHAPE,
+                                LM_TRAIN_SHAPE, lm_parallel_arch)
+from ..core.layer_stats import stats_for
 from ..data.pipeline import Loader
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
-from ..parallel.schedules import SCHEDULE_NAMES, make_pipeline_train_step
+from ..parallel.schedules import (SCHEDULE_NAMES, make_pipeline_train_step,
+                                  pipeline_block_costs)
 from ..parallel.strategies import make_rules
 from ..training.steps import make_train_step, train_state
 from .build import build_model, shard_batch
+from .mesh import make_grid_mesh
 from .profile_serve import report
 from .spawn import run_ranks
 from .train import CNN_STRATEGIES, LM_STRATEGIES, data_config_for
@@ -69,10 +75,11 @@ ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 _SPANS = ("comm.", "gloo:", "nccl:", "record_param_comms")
 
 
-def _shape(arch: str, sharded: bool = False) -> str:
+def _shape(arch: str, sharded: bool = False, pipe: bool = False) -> str:
     if arch in LM_TRAIN_SHAPE:
         if sharded:
-            return "l{}_b{}_s{}_fp32".format(*LM_PARALLEL_SHAPE[arch])
+            return "l{}_b{}_s{}_fp32".format(
+                *(LM_PIPELINE_SHAPE if pipe else LM_PARALLEL_SHAPE)[arch])
         return "b{}_s{}".format(*LM_TRAIN_SHAPE[arch])
     return f"b{ORACLE_BATCH[arch]}"
 
@@ -85,8 +92,9 @@ def _warm_step(arch: str, ctx: ShardingCtx, schedule: str | None = None,
     at LM_PARALLEL_SHAPE), after 2 warm-up steps: (step, state, batch)."""
     cfg = get_config(arch)
     if arch in LM_TRAIN_SHAPE and ctx.sharded:
-        cfg = lm_parallel_arch(arch)
-        _, size, seq = LM_PARALLEL_SHAPE[arch]
+        layers, size, seq = (LM_PIPELINE_SHAPE if schedule else
+                             LM_PARALLEL_SHAPE)[arch]
+        cfg = lm_parallel_arch(arch, layers)
         opt = OptimizerConfig(name="sgd", zero1=zero1)
         fwd_kw = {"q_chunk": min(256, seq)}
     elif arch in LM_TRAIN_SHAPE:
@@ -104,7 +112,11 @@ def _warm_step(arch: str, ctx: ShardingCtx, schedule: str | None = None,
         step = make_train_step(model, opt, ctx, **fwd_kw)
     else:
         model = build_model(cfg, ShardingCtx(ctx.device), seed=0)
-        step = make_pipeline_train_step(model, opt, ctx, schedule=schedule)
+        if seq:
+            fwd_kw["block_costs"] = pipeline_block_costs(
+                model, stats_for(cfg.model, seq))
+        step = make_pipeline_train_step(model, opt, ctx, schedule=schedule,
+                                        **fwd_kw)
     state = train_state(model, opt, ctx)
     for _ in range(2):
         state, _ = step(state, batch)
@@ -156,8 +168,10 @@ def _rank(mesh, arch: str, strategies: tuple, schedule: str) -> dict:
     out = {}
     for s in strategies:
         pipe = s == "pipeline"
-        ctx = ShardingCtx(mesh.device, mesh=mesh.regrid(1, RANKS) if pipe
-                          else mesh, rules=make_rules(s))
+        grid = (mesh.regrid(1, RANKS) if pipe else
+                make_grid_mesh(mesh, 1, 2, RANKS // 2) if s == "summa"
+                else mesh)
+        ctx = ShardingCtx(mesh.device, mesh=grid, rules=make_rules(s))
         step, state, batch = _warm_step(arch, ctx, schedule if pipe
                                         else None, zero1=s == "df_zero1")
         prof, host_s = _traced(step, state, batch, mesh.device,
@@ -171,7 +185,8 @@ def _rank(mesh, arch: str, strategies: tuple, schedule: str) -> dict:
 
 def _report_sharded(arch: str, res: dict) -> None:
     for s, r in res.items():
-        name = f"{arch}_{_shape(arch, sharded=True)}_{s}_p{RANKS}"
+        shape = _shape(arch, sharded=True, pipe=s.startswith("pipeline"))
+        name = f"{arch}_{shape}_{s}_p{RANKS}"
         comm = sum(r["comm_host_ms"].values())
         print(f"[profile] {name}: host_ms_per_step={r['host_ms']:.6g} "
               f"rank0_kernel_ms={r['kernel_ms']:.6g} "
@@ -189,16 +204,17 @@ def main(argv=None):
     ap.add_argument("--arch", default="cosmoflow",
                     choices=list(ORACLE_BATCH) + list(LM_TRAIN_SHAPE))
     ap.add_argument("--strategies", default=None,
-                    help=f"comma-separated rules tables (or pipeline, for "
-                         f"a CNN): profile one rank of {RANKS} sharing the "
-                         f"card")
+                    help=f"comma-separated rules tables (or pipeline; "
+                         f"summa for an attention LM): profile one rank of "
+                         f"{RANKS} sharing the card")
     ap.add_argument("--schedule", default="gpipe", choices=SCHEDULE_NAMES,
                     help="the pipeline's schedule")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     if args.strategies:
-        known = (LM_STRATEGIES if args.arch in LM_TRAIN_SHAPE else
+        known = (LM_STRATEGIES + ("pipeline", "summa")
+                 if args.arch in LM_TRAIN_SHAPE else
                  CNN_STRATEGIES + ("pipeline",))
         strategies = tuple(args.strategies.split(","))
         for s in strategies:

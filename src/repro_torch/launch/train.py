@@ -13,6 +13,9 @@
     PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 \
         -m repro_torch.launch.train --arch qwen1.5-4b --smoke --steps 2 \
         --batch 8 --seq 32 --device cpu --strategy df_zero1
+    PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch mamba2-780m --smoke --steps 2 \
+        --batch 8 --seq 32 --device cpu --strategy pipeline
 
 Trains the paper's CNNs (``--arch`` resnet50, resnet152, vgg16 or
 cosmoflow) and the LMs (qwen1.5-4b, mamba2-780m; ``--seq`` tokens a
@@ -32,7 +35,7 @@ df with ZeRO-1 (``df_zero1``: the optimizer state split over "data") or
 ZeRO-3 (``df_zero3``: the parameters too): every rank draws the whole batch
 (``--batch`` is global) and keeps its block. On a card each rank prints its
 peak memory at the end. Without a world it is the single-device trainer and
-``--strategy`` is moot. An LM's pipeline raises (ROADMAP queue 1 item 8).
+``--strategy`` is moot.
 
 ``--strategy pipeline`` is the paper's layer strategy
 (``parallel/schedules``): the ranks of the model axis (all of them unless
@@ -40,8 +43,9 @@ peak memory at the end. Without a world it is the single-device trainer and
 gpipe, one_f_one_b or interleaved (``--virtual-stages`` chunks a rank),
 ``--segments`` the requested microbatch count (the step runs the largest
 deployable S ≤ it and reports it), and the cuts come from the partitioner
-over the oracle's per-block costs. ``--accum > 1`` is refused there: the
-microbatches are the accumulation.
+over the oracle's per-block costs (an LM's per-layer costs at ``--seq``;
+its embedding runs on the first stage, its head and loss on the last).
+``--accum > 1`` is refused there: the microbatches are the accumulation.
 
 Like the JAX trainer it trains without ``use_pallas``: none of the four
 kernels has a backward, in the JAX package or here, so the convs, norms,
@@ -59,12 +63,14 @@ import torch
 import torch.distributed as dist
 
 from ..configs import get_config
+from ..core.layer_stats import stats_for
 from ..data.pipeline import DataConfig, Loader
 from ..models.cnn import CosmoFlowConfig, ResNetConfig, VGGConfig
 from ..models.transformer import LMConfig
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
-from ..parallel.schedules import SCHEDULE_NAMES, make_pipeline_train_step
+from ..parallel.schedules import (SCHEDULE_NAMES, make_pipeline_train_step,
+                                  pipeline_block_costs)
 from ..parallel.strategies import make_rules
 from ..training.steps import make_train_step, train_state
 from .build import build_model, shard_batch
@@ -166,9 +172,13 @@ def _loop(args, ctx: ShardingCtx) -> dict:
         # every rank holds the whole model and updates the blocks it owns
         model = build_model(cfg, ShardingCtx(ctx.device), smoke=args.smoke,
                             seed=args.seed)
+        lm = {}
+        if isinstance(mc, LMConfig):
+            lm = dict(block_costs=pipeline_block_costs(
+                model, stats_for(mc, args.seq)), q_chunk=min(256, args.seq))
         step = make_pipeline_train_step(
             model, opt, ctx, segments=args.segments,
-            schedule=args.schedule, virtual_stages=args.virtual_stages)
+            schedule=args.schedule, virtual_stages=args.virtual_stages, **lm)
         if log:
             print(f"pipeline schedule={args.schedule}"
                   + (f" v={args.virtual_stages}"

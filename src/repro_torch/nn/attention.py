@@ -27,8 +27,14 @@ heads split as ``act_heads``/``act_kv`` say, the output as the residual
 stream. The projections are column-parallel on the heads (the biases split
 with them), RoPE runs at global positions (the sequence is whole there),
 the attention itself on the local batch rows and heads, and ``wo`` is
-row-parallel (``nn.layers.project``). The caches (``prefill``,
-``decode``) run on one device.
+row-parallel (``nn.layers.project``). On the 2-D grid of the "summa"
+table the q, k, v and output projections run as SUMMA
+(``parallel.summa.attn_qkv``/``attn_out``) off the residual split over
+both grid axes, where the shapes divide the grid, as the reference's
+``_qkv`` and ``_out`` route them; q, k and v are then re-laid out with
+their sequence whole before the bias and RoPE (elementwise, so the order
+changes no number). The caches (``prefill``, ``decode``) run on one
+device.
 
 Grouped kv heads, a sliding window and its ring cache, a logit softcap, an
 output bias, ``qk_norm``, MLA and cross-attention come with the first ported
@@ -45,6 +51,7 @@ from torch import nn
 from ..kernels.flash_attention.flash_attention import \
     flash_attention as flash_attention_kernel
 from ..kernels.util import largest_divisor
+from ..parallel import summa
 from ..parallel.sharded import Sharded, param_for
 from .layers import project
 from .module import ShardingCtx, constant, fan_in_normal
@@ -193,27 +200,34 @@ class Attention(nn.Module):
         """``forward`` across ranks (the reference's ``_qkv``, its chunked
         attention and ``_out`` under its constraints)."""
         c = self.cfg
-        x = ctx.constrain(x, ("batch", None, "act_embed"))
+        grid = summa.summa_axes(ctx) is not None
+        if grid and summa.qkv_ok(c, x.mesh, x.shape):
+            proj = summa.attn_qkv(self, x)
+        else:
+            x = ctx.constrain(x, ("batch", None, "act_embed"))
+            proj = [project(x, w) for w in (self.wq, self.wk, self.wv)]
         positions = torch.arange(x.shape[1], device=x.local.device)[None, :]
 
-        def qkv(w, b, rotate, act):
-            t = project(x, w)
+        def finish(t, b, rotate, act):
+            t = ctx.constrain(t, ("batch", None, act, None))
             y = t.local
             if b is not None:
                 y = y + param_for(b, t, 2).relayout(t.place[2:]).local
             if rotate:
                 y = apply_rope(y, positions, c.rope_base)
-            return ctx.constrain(Sharded(y, t.shape, t.place, t.mesh),
-                                 ("batch", None, act, None))
+            return Sharded(y, t.shape, t.place, t.mesh)
 
         bias = (self.bq, self.bk, self.bv) if c.use_bias else (None,) * 3
-        q = qkv(self.wq, bias[0], True, "act_heads")
-        k = qkv(self.wk, bias[1], True, "act_kv").relayout(q.place)
-        v = qkv(self.wv, bias[2], False, "act_kv").relayout(q.place)
+        q = finish(proj[0], bias[0], True, "act_heads")
+        k = finish(proj[1], bias[1], True, "act_kv").relayout(q.place)
+        v = finish(proj[2], bias[2], False, "act_kv").relayout(q.place)
         o = q.map(lambda ql, kl, vl: self._core(ql, kl, vl, ctx, q_chunk,
                                                 kv_chunk), k, v)
-        return ctx.constrain(project(o, self.wo, n=2),
-                             ("batch", "seq", "act_embed"))
+        if grid and summa.out_ok(c, o.mesh, o.shape):
+            y = summa.attn_out(self, o)
+        else:
+            y = project(o, self.wo, n=2)
+        return ctx.constrain(y, ("batch", "seq", "act_embed"))
 
     def prefill(self, x, cache, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):

@@ -6,7 +6,10 @@ and Mixture-of-Experts come with the models that use them.
 Across ranks (a ``parallel.sharded.Sharded`` input) it is the reference's
 ``apply`` under its constraints: the input with its sequence whole,
 w_in and w_gate column-parallel on ``mlp``, the hidden re-laid out as
-``act_mlp``, w_out row-parallel, the output as the residual stream."""
+``act_mlp``, w_out row-parallel, the output as the residual stream. On the
+2-D grid of the "summa" table the three products run as SUMMA
+(``parallel.summa.ffn_apply``) where the shapes divide the grid, as the
+reference's ``apply`` routes them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -14,6 +17,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..parallel import summa
 from ..parallel.sharded import Sharded
 from .layers import project
 from .module import ShardingCtx, fan_in_normal
@@ -55,6 +59,9 @@ class FFN(nn.Module):
     def forward(self, x, ctx: ShardingCtx):
         if not isinstance(x, Sharded):
             return (_silu(x @ self.w_in) * (x @ self.w_gate)) @ self.w_out
+        if summa.summa_axes(ctx) and summa.ffn_ok(self.cfg, x.mesh, x.shape):
+            return ctx.constrain(summa.ffn_apply(self, x, _silu),
+                                 ("batch", "seq", "act_embed"))
         x = ctx.constrain(x, ("batch", None, "act_embed"))
         h = project(x, self.w_in).map(lambda a, g: _silu(a) * g,
                                       project(x, self.w_gate))

@@ -15,7 +15,10 @@ collective         forward                      backward (its adjoint)
 =================  ===========================  ==========================
 
 and the halo exchange's backward sends the received rows' gradients back to
-their owners (``parallel/halo.py``). A scalar loss that all p ranks hold
+their owners (``parallel/halo.py``). ``ring_shift`` (one hop around a
+group's ring, no autograd) is the SUMMA matmul's panel broadcast; its
+autograd function (``parallel/summa.py``) runs the reversed ring, the
+adjoint, in its backward. A scalar loss that all p ranks hold
 seeds its backward with 1/p on each (``training.steps``), and a parameter
 replicated over a group has its gradient summed over that group after the
 backward. By the chain rule on the ranks' stacked computation, every rank
@@ -92,6 +95,28 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group.pg)
     return y
+
+
+def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """``x`` sent ``shift`` places on around ``group``'s ring (to the rank
+    of index + shift), and the tensor of the rank ``shift`` places back
+    received in exchange (no autograd)."""
+    n = group.size
+    if x.is_meta or n == 1 or shift % n == 0:
+        return x
+    with record_function("comm.ring_shift"):
+        send = _host(x, group.stage)
+        recv = torch.empty_like(send)
+        i = group.index
+        # one batch: NCCL would hold plain sends each waiting for the next
+        # rank's receive
+        for w in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, group.ranks[(i + shift) % n],
+                           group.pg),
+                dist.P2POp(dist.irecv, recv, group.ranks[(i - shift) % n],
+                           group.pg)]):
+            w.wait()
+        return recv.to(x.device)
 
 
 def block(x: torch.Tensor, dim: int, group) -> torch.Tensor:

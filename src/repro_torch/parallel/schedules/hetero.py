@@ -1,4 +1,4 @@
-"""The paper's CNNs cut into pipeline blocks (counterpart of
+"""The paper's CNNs and the LMs cut into pipeline blocks (counterpart of
 ``repro.parallel.schedules.hetero``).
 
 A CNN trunk has no uniform stacked layout: its blocks differ in parameters
@@ -25,6 +25,18 @@ each stage knows its boundary shape (``boundary_shapes``), so the executor
 (``runtime.py``) sends tensors of the exact shape. The values are the same;
 the padding is not sent.
 
+An LM's blocks are its layers, one ``PipeBlock`` a layer named
+``L{j}.{kind}`` (``_lm_layer_blocks``), each running ``Block.forward``
+under the same mesh-free context, as the reference's run under
+``NULL_CTX``; its costs come from the oracle's per-layer stats
+(``stages.block_costs_from_stats``). A uniform pattern and a mixed one
+(``("ssm", "attn")``, its remainder layers included) cut the same way:
+eager torch needs neither the reference's stacked layouts for the one
+nor its switch-specialised programs for the other. The embedding, the
+final norm and the head are not blocks: the train step runs them on the
+first and the last stage. Every boundary is a (microbatch, seq, d_model)
+activation in the model's dtype.
+
 A block also names the parameters it reads (``PipeBlock.params``), which
 is how the train step knows the blocks each rank owns.
 """
@@ -40,9 +52,7 @@ import torch
 from ...models.cnn import CNN_MODELS
 from ...models.transformer import LMConfig, TransformerLM
 from ...nn.module import ShardingCtx
-
-LM_PIPELINE = ("the LM pipeline (stacked and mixed patterns) is not ported "
-               "yet, ROADMAP queue 1 item 8")
+from .stages import block_costs_from_stats
 
 
 @dataclass(frozen=True)
@@ -58,17 +68,19 @@ class PipeBlock:
     params: tuple[str, ...] = ()
 
 
-def model_pipe_blocks(model, stats=None) -> list[PipeBlock]:
-    """The model's pipeline blocks, stem through head.
+def model_pipe_blocks(model, stats=None, **fwd_kw) -> list[PipeBlock]:
+    """The model's pipeline blocks: a CNN's stem through head, an LM's
+    layers (its embedding and head stay outside).
 
     ``stats`` (the oracle's per-layer table, ``core.layer_stats``) supplies
     per-block fw+bw costs: exact backward FLOPs where the extractor recorded
     them (``flops_bwd_exact``), else 2× the forward; uniform costs without
-    stats."""
+    stats. ``fwd_kw``: an LM layer's attention chunks (``q_chunk``,
+    ``kv_chunk``)."""
     if type(model) in CNN_MODELS.values():
         return _cnn_blocks(model, stats)
     if isinstance(model, TransformerLM):
-        return _lm_layer_blocks(model, stats)
+        return _lm_layer_blocks(model, stats, **fwd_kw)
     raise NotImplementedError(
         f"{type(model).__name__}: no pipeline block decomposition")
 
@@ -80,7 +92,7 @@ def pipeline_block_count(cfg) -> int | None:
     if type(cfg) in CNN_MODELS:
         return len(meta_twin(cfg).ordered_blocks())
     if isinstance(cfg, LMConfig):
-        return cfg.n_layers                      # embed/head stay outside
+        return cfg.n_layers                  # embed and head stay outside
     return None
 
 
@@ -129,8 +141,19 @@ def _cnn_blocks(model, stats) -> list[PipeBlock]:
             for b, cost in zip(spec, costs)]
 
 
-def _lm_layer_blocks(model, stats) -> list[PipeBlock]:
-    raise NotImplementedError(f"{type(model).__name__}: {LM_PIPELINE}")
+def _lm_layer_blocks(model, stats, q_chunk: int = 1024,
+                     kv_chunk: int = 1024) -> list[PipeBlock]:
+    """One block a layer, ``L{j}.{kind}``, reading ``blocks.{j}.*``."""
+    ctx, kinds = _plain_ctx(model), model.cfg.block_kinds()
+    costs = (block_costs_from_stats(stats, len(kinds)) if stats is not None
+             else np.ones(len(kinds)))
+    names = [k for k, _ in model.named_parameters()]
+    return [PipeBlock(f"L{j}.{kind}",
+                      partial(blk, ctx=ctx, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk), float(cost),
+                      tuple(k for k in names if k.startswith(f"blocks.{j}.")))
+            for j, (kind, blk, cost) in enumerate(zip(kinds, model.blocks,
+                                                      costs))]
 
 
 @torch.no_grad()

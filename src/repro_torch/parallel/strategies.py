@@ -17,8 +17,10 @@ beyond-paper         → ZeRO-1/3 (optimizer/param sharding over data),
                        expert parallelism, sequence-parallel residual stream
 
 The port executes the paper's rows (data, spatial, filter, channel, df,
-ds) on ``torch.distributed`` for the CNNs and the LMs, and df_zero1 and
-df_zero3 for the LMs; the other tables resolve but no port model runs
+ds) on ``torch.distributed`` for the CNNs and the LMs, df_zero1 and
+df_zero3 for the LMs, "pipeline" through the stage executor
+(``parallel/schedules``) and "summa" for the attention LMs on a grid mesh
+(``parallel/summa.py``); the other tables resolve but no port model runs
 under them yet (ROADMAP queue 1).
 """
 from __future__ import annotations

@@ -19,7 +19,9 @@ gradient of its blocks). Microbatch i is rows [i·B/accum, (i+1)·B/accum) of
 the whole batch, as in the reference, gathered and split anew. Under
 ZeRO-1 (``opt.zero1``; ``train_state`` given the ctx places the state)
 each rank updates its block and the parameters are all-gathered after the
-update (``optim.optimizers.gather_zero1``).
+update (``optim.optimizers.gather_zero1``). On the 2-D grid of the "summa"
+table (``parallel/summa.py``) only an LM of attention blocks trains; a CNN
+or an SSM model raises.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from ..optim.optimizers import (OptimizerConfig, apply_update,
                                 sharded_global_norm)
 from ..parallel import collectives as C
 from ..parallel.sharded import Sharded, replicas
+from ..parallel.summa import summa_axes, summa_supported
 
 
 def train_state(model: torch.nn.Module, opt: OptimizerConfig,
@@ -47,6 +50,8 @@ def train_state(model: torch.nn.Module, opt: OptimizerConfig,
 def make_train_step(model, opt: OptimizerConfig, ctx: ShardingCtx,
                     accum: int = 1, **fwd_kw) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics)."""
+    if summa_axes(ctx) is not None and summa_supported(model) is not None:
+        raise NotImplementedError(summa_supported(model))
 
     seed = 1.0 / ctx.mesh.size if ctx.sharded else 1.0
 

@@ -225,8 +225,8 @@ def test_trainer_runs_an_lm_on_the_cpu(arch):
 
 def test_lm_refusals_name_their_items(monkeypatch):
     """An LM's prompt pass or decode step across ranks names item 6 (the
-    sharded serving layouts), an LM pipeline item 8, an MTP model item 10;
-    the trainer without CUDA raises."""
+    sharded serving layouts), an MTP model item 10; an LM pipeline without
+    a mesh to stage it on raises; the trainer without CUDA raises."""
     cfg = get_config("qwen1.5-4b")
 
     class _Mesh:
@@ -238,7 +238,7 @@ def test_lm_refusals_name_their_items(monkeypatch):
         lm.prefill(tokens, None, across)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         lm.decode_step(tokens[:, :1], None, 8, across)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="a mesh with a 'model' axis"):
         make_pipeline_train_step(lm, OptimizerConfig(), CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         TransformerLM(dataclasses.replace(cfg.smoke_model, mtp_heads=1),

@@ -10,8 +10,9 @@ lists run to their end when every receive blocks (no deadlock), every
 transfer has one sender and one receiver, the sends between two ranks come
 in the order their receiver takes them, and 1F1B keeps at most p − r
 microbatches live on rank r; an unknown schedule, p·v above the block
-count, S % p ≠ 0 under interleaved and an LM each raise, and the trainer
-refuses ``--accum > 1`` under ``--strategy pipeline``.
+count (an LM's blocks are its layers) and S % p ≠ 0 under interleaved
+each raise, and the trainer refuses ``--accum > 1`` under ``--strategy
+pipeline``.
 """
 import warnings
 
@@ -312,12 +313,11 @@ def test_unknown_schedule_deep_pipes_bad_segments_and_the_lm_raise():
         SCHEDULES["interleaved"](program, 6)
     lm = TransformerLM(get_config("qwen1.5-4b").smoke_model, device=META,
                        generator=None)
-    assert "queue 1 item 8" in pipeline_supported(lm)
+    assert pipeline_supported(lm) is None
     assert pipeline_supported(resnet) is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="4 stages × 1 virtual exceed 2"):
         make_pipeline_train_step(lm, opt, ctx)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        model_pipe_blocks(lm)
+    assert [b.name for b in model_pipe_blocks(lm)] == ["L0.attn", "L1.attn"]
     with pytest.raises(SystemExit, match="--accum > 1"):
         train.main(["--arch", "resnet50", "--smoke", "--device", "cpu",
                     "--strategy", "pipeline", "--accum", "2"])
