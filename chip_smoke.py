@@ -89,15 +89,17 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              and (2, 2) mesh: Qwen1.5-4B at its published widths with 2 of
              its 40 layers, fp32, batch 4 x 512, and Mamba-2 780m the same
              way at batch 4 x 1024 (configs.lm_archs.LM_PARALLEL_SHAPE),
-             weights from seed 0. 2 SGD steps under data, spatial, filter,
-             channel, df and ds (the Qwen also df_zero1 and df_zero3): the
+             weights from seed 0. 2 SGD steps under data, filter,
+             channel, df and ds (the Qwen also df_zero1 and df_zero3; the
+             spatial table is ds's, so it is not run again): the
              first loss, the first step's gradient norm and the second loss
              against two single-process steps (computed first, released
              before the spawn) within PAR_LOSS_TOL and PAR_STEP_TOL, with
              the step ms and every rank's peak memory; Fig. 3's LM rows at
              p = 4 (the Qwen, validate self-calibrated, as the reference's
-             check_oracle_validation: data, filter, channel, spatial, df,
-             ds and the mean; gated on finiteness only); the kernel
+             check_oracle_validation: data, filter and df, and the mean;
+             channel, spatial and ds are left out for time, see LM_PAR;
+             gated on finiteness only); the kernel
              launches per rank (none: no kernel has a backward, so LM
              training runs the plain norms, attention and SSD) and the
              phase's wall time.
@@ -125,6 +127,25 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              3's summa row at p = 4 (validate(grid=(2, 2)),
              self-calibrated; gated on finiteness only) and the phase's
              wall time.
+  5h. serve-sharded  the serving engine across the same ranks on the
+             (1, PAR_RANKS) regrid: Qwen1.5-4B at full width with
+             SHARDED_LAYERS of its 40 layers, fp32, use_pallas, weights
+             from seed 0 (each rank cuts every weight to its block as it is
+             drawn); 8 requests of TrafficModel(rate 8, prompt 128, gen
+             16), seed 0, closed loop, 8 slots, 16-token blocks, prefill
+             chunk 64, max_len 256, replayed by
+             core.validation.measure_serving under serve_tp (kv_shards 1)
+             and serve_seqkv (kv_shards PAR_RANKS). Every request's tokens
+             on every rank equal the single-process engine's (computed
+             before the spawn); request 0's first prompt chunk's logits
+             within SHARDED_LOGIT_TOL in relative L2; rmsnorm launches
+             2·L + 1 times and flash_attention and ssd_chunk never in
+             every cell call on every rank. Per layout the collectives a
+             decode_step call and a cell, the host ms inside comm.* a
+             cell, tok/s, TTFT and latency p50/p99 and every rank's peak,
+             beside price_serving at p1 = 1, p2 = PAR_RANKS on the cluster
+             the [parallel] phase calibrated (gated on finiteness only);
+             the winners by tok/s, printed, not gated.
   6. serve   Qwen1.5-4B at full width in bf16, random weights from seed 0:
              a prompt pass over 4 prompts of 2048 tokens, then 32 greedy
              decode steps into a cache of 2080 positions, with use_pallas:
@@ -365,13 +386,17 @@ PAR_ORACLE = (("resnet50", 16, ("data", "filter", "channel", "spatial",
 # at LM_PARALLEL_SHAPE (layers, global batch, seq), 2 SGD steps a table,
 # held against two single-process steps at the bars above (the CPU tests
 # read <= 1.5e-7 in the smoke LMs' losses and <= 1.3e-6 in their
-# gradients' relative L2); then Fig. 3's LM rows for LM_PAR_ORACLE.
-LM_PAR = (("qwen1.5-4b", ("data", "spatial", "filter", "channel", "df", "ds",
+# gradients' relative L2); then Fig. 3's LM rows for LM_PAR_ORACLE. Cut
+# for the time the serve-sharded phase needs: the "spatial" table is the
+# "ds" table (the same rules), so "ds" trains and "spatial" does not;
+# Fig. 3's LM rows run data, filter and df (channel's step is filter's in
+# time, 10.2 s against 10.3 on an H100, and the oracle projects both at
+# 733.28 ms; spatial is measured under the ds rules; the five rows with
+# channel and ds took 271 s on an H100).
+LM_PAR = (("qwen1.5-4b", ("data", "filter", "channel", "df", "ds",
                           "df_zero1", "df_zero3")),
-          ("mamba2-780m", ("data", "spatial", "filter", "channel", "df",
-                           "ds")))
-LM_PAR_ORACLE = ("qwen1.5-4b", ("data", "filter", "channel", "spatial", "df",
-                                "ds"))
+          ("mamba2-780m", ("data", "filter", "channel", "df", "ds")))
+LM_PAR_ORACLE = ("qwen1.5-4b", ("data", "filter", "df"))
 # The lm-pipeline phase on the same spawn, the ranks as the stages of the
 # (1, PAR_RANKS) regrid: (arch, requested S, ((schedule, interleaved v),
 # ...)) at LM_PIPELINE_SHAPE (layers, global batch, seq), 2 SGD steps a
@@ -387,6 +412,34 @@ LM_PIPE_ORACLE = "qwen1.5-4b"
 # grid) at LM_PARALLEL_SHAPE, 2 SGD steps held against the lm-parallel
 # phase's single-process steps, then Fig. 3's summa row at (r, c).
 SUMMA_RUN = ("qwen1.5-4b", (1, 2, 2))
+# The serve-sharded phase on the same spawn, the ranks on the (1, PAR_RANKS)
+# regrid: the engine serving SHARDED_ARCH at full width and depth in fp32
+# (bf16 moves some request's tokens under serve_tp against one device; the
+# reference's own serving check builds an fp32 model for that reason), with
+# use_pallas, weights from seed 0, under each (layout, kv_shards): the trace
+# TrafficModel(**SHARDED_TRAFFIC), SHARDED_REQUESTS requests, seed 0, closed
+# loop, max_len as launch.serve aligns it to prefill_chunk x kv_shards for
+# the widest layout (256). Gates: every request's tokens on every rank equal
+# the single-process engine's (computed before the spawn); the logits of
+# request 0's first prompt chunk within SHARDED_LOGIT_TOL of the single-
+# process ones in relative L2 (the CPU tests read ~1e-7 at the smoke width;
+# fp32 sums in another order; 2.0e-6 at 40 layers on an H100); the
+# launches a cell call on every rank 2·L + 1 rmsnorm, as
+# ENGINE_CELL_LAUNCHES at 40 layers. The serving oracle's projection at
+# p1 = 1, p2 = PAR_RANKS is printed beside the measurement, gated on
+# finiteness only.
+SHARDED_ARCH = "qwen1.5-4b"
+# 4 of its 40 layers: every collective waits on the card's time slices
+# among the 4 rank processes (8.5-12 ms each on an H100; 81 a serve_tp
+# decode cell, 281 a serve_seqkv one at 40 layers). At 40 layers the phase
+# took 438.5 s (every gate held), at 8 112.4 s and the script 1152.5 s of
+# its 1200, at 4 45.9 s
+SHARDED_LAYERS = 4
+SHARDED_LAYOUTS = (("serve_tp", 1), ("serve_seqkv", PAR_RANKS))
+SHARDED_TRAFFIC = dict(rate=8.0, prompt_len=128, gen_len=16)
+SHARDED_REQUESTS = 8
+SHARDED_CFG = dict(max_batch=8, block_tokens=16, prefill_chunk=64)
+SHARDED_LOGIT_TOL = 1e-4
 
 # (name, rows, D, dtype): the Qwen1.5-4B norms of a prompt pass (4 x 2048
 # tokens) and of a decode step (4 tokens), a prime row count, and the
@@ -1472,6 +1525,7 @@ def _parallel_rank(mesh, hbm_bw: float):
     out["lm"] = _lm_parallel_rank(mesh)
     out["lm_pipe"] = _lm_pipeline_rank(mesh)
     out["summa"] = _summa_rank(mesh)
+    out["serve_sharded"] = _serve_sharded_rank(mesh)
     if mesh.rank == 0:
         return out
     return {"launches": out["launches"],
@@ -1480,7 +1534,8 @@ def _parallel_rank(mesh, hbm_bw: float):
                    "kernels": out["lm"]["kernels"]},
             "lm_pipe": {"peaks": out["lm_pipe"]["peaks"]},
             "summa": {"peaks": out["summa"]["peaks"],
-                      "calls": out["summa"]["calls"]}}
+                      "calls": out["summa"]["calls"]},
+            "serve_sharded": out["serve_sharded"]}
 
 
 def _lm_batch(arch: str, dev) -> dict:
@@ -1916,6 +1971,227 @@ def _report_summa(results, refs, seconds):
           f"its references are [lm-parallel]'s)", flush=True)
 
 
+def _sharded_cell(vocab: int):
+    """(traffic, trace, max_len) of the serve-sharded phase."""
+    from repro_torch.launch.serve import trace_max_len
+    from repro_torch.serve import TrafficModel
+    traffic = TrafficModel(**SHARDED_TRAFFIC)
+    trace = traffic.trace(SHARDED_REQUESTS, vocab, seed=0)
+    widest = max(shards for _, shards in SHARDED_LAYOUTS)
+    return traffic, trace, trace_max_len(
+        trace, SHARDED_CFG["prefill_chunk"], traffic.gen_len, widest)
+
+
+def _first_chunk_logits(model, ctx, trace, max_len: int, shards: int):
+    """The logits (1, C, vocab) of request 0's first prompt chunk (padded as
+    the engine pads it) on a fresh dense cache, whole, on the host."""
+    C = SHARDED_CFG["prefill_chunk"]
+    chunk = torch.zeros((1, C), dtype=torch.int32)
+    prompt = torch.from_numpy(trace[0].prompt[:C])
+    chunk[0, :len(prompt)] = prompt
+    cache = zeros_like_spec(model.cache_spec(1, max_len, shards=shards,
+                                             dtype=torch.float32),
+                            ctx.device, ctx)
+    with torch.no_grad():
+        logits, _ = model.decode_step(chunk.to(ctx.device), cache,
+                                      torch.zeros(1, dtype=torch.int64,
+                                                  device=ctx.device), ctx)
+    logits = logits.full() if ctx.sharded else logits
+    return logits.cpu()
+
+
+def _serve_sharded_refs(dev) -> dict:
+    """The single-process engine on the serve-sharded cell, before the
+    spawn: measure_serving's tokens and report, request 0's first-chunk
+    logits, the peak; every tensor released after."""
+    from repro_torch.serve import ServeConfig
+    t_ref = time.perf_counter()
+    cfg = lm_parallel_arch(SHARDED_ARCH, SHARDED_LAYERS)
+    ctx = ShardingCtx(dev, use_pallas=True)
+    traffic, trace, max_len = _sharded_cell(cfg.model.vocab)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, ctx, seed=0)
+    logits = _first_chunk_logits(model, ctx, trace, max_len, 1)
+    report = measure_serving(model, ctx, "serve_tp", ServeConfig(
+        max_len=max_len, dtype=torch.float32, **SHARDED_CFG), trace)
+    out = {"tokens": [r.tokens for r in report.requests], "logits": logits,
+           "summary": report.summary(), "max_len": max_len,
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_ref
+    return out
+
+
+def _serve_sharded_rank(mesh22) -> dict:
+    """One rank of the serve-sharded phase, on the (1, PAR_RANKS) regrid:
+    per layout the tokens, the report's summary, the first-chunk logits,
+    per cell call its (chunk, rmsnorm, flash, ssd launches, collectives,
+    host s inside comm.*), the replays' collectives and comm seconds and
+    this rank's peak."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.strategies import make_rules
+    from repro_torch.serve import ServeConfig
+    t_phase = time.perf_counter()
+    dev = mesh22.device
+    mesh = mesh22.regrid(1, PAR_RANKS)
+    cfg = lm_parallel_arch(SHARDED_ARCH, SHARDED_LAYERS)
+    traffic, trace, max_len = _sharded_cell(cfg.model.vocab)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    # both serving tables place the weights alike: one build serves both
+    model = build_model(cfg, ShardingCtx(dev, use_pallas=True, mesh=mesh,
+                                         rules=make_rules("serve_tp")),
+                        seed=0)
+    torch.cuda.synchronize(dev)
+    out = {"build_s": time.perf_counter() - t0, "layouts": {},
+           "peaks": {"build": torch.cuda.max_memory_allocated(dev)}}
+    for s, shards in SHARDED_LAYOUTS:
+        ctx = ShardingCtx(dev, use_pallas=True, mesh=mesh,
+                          rules=make_rules(s))
+        scfg = ServeConfig(max_len=max_len, kv_shards=shards,
+                           dtype=torch.float32, **SHARDED_CFG)
+        logits = _first_chunk_logits(model, ctx, trace, max_len, shards)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        per_call, decode_step = [], model.decode_step
+
+        def counted(tokens, *args):
+            before = _counts()
+            c0, s0 = coll.STATS["calls"], coll.STATS["seconds"]
+            y = decode_step(tokens, *args)
+            per_call.append((tokens.shape[1],) + tuple(
+                a - b for a, b in zip(_counts(), before)) + (
+                coll.STATS["calls"] - c0, coll.STATS["seconds"] - s0))
+            return y
+
+        model.decode_step = counted
+        c0, s0 = coll.STATS["calls"], coll.STATS["seconds"]
+        t0 = time.perf_counter()
+        report = measure_serving(model, ctx, s, scfg, trace)
+        seconds = time.perf_counter() - t0
+        del model.decode_step
+        out["layouts"][s] = {
+            "tokens": [r.tokens for r in report.requests],
+            "summary": report.summary(),
+            "logits": logits if mesh.rank == 0 else None,
+            "per_call": per_call, "seconds": seconds,
+            "comm": (coll.STATS["calls"] - c0, coll.STATS["seconds"] - s0)}
+        out["peaks"][s] = torch.cuda.max_memory_allocated(dev)
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _report_serve_sharded(results, refs, seconds, cluster, hbm_bw):
+    """Prints and gates the serve-sharded phase (see the module docstring,
+    5h): tokens, first-chunk logits and launches against the single-process
+    engine's; the serving oracle's projection beside the measurement."""
+    mc = lm_parallel_arch(SHARDED_ARCH, SHARDED_LAYERS).model
+    want = (2 * mc.n_layers + 1, 0, 0)
+    traffic, trace, max_len = _sharded_cell(mc.vocab)
+    single = refs["summary"]
+    print(f"[serve-sharded] mesh (data=1, model={PAR_RANKS}): the [parallel] "
+          f"world regridded, sharing the card over gloo; {SHARDED_ARCH} "
+          f"{mc.n_layers} layers at full width, fp32, use_pallas; "
+          f"{len(trace)} requests of TrafficModel({SHARDED_TRAFFIC}) seed 0, "
+          f"closed loop, {SHARDED_CFG}, max_len={max_len}; weights built "
+          f"per rank in "
+          f"{max(r['serve_sharded']['build_s'] for r in results):.4g} s "
+          f"(peak_GiB_per_rank="
+          + ",".join(f"{r['serve_sharded']['peaks']['build'] / 2 ** 30:.4g}"
+                     for r in results) + ")", flush=True)
+    print(f"[serve-sharded] single_process (one card, measure_serving "
+          f"serve_tp): tok_per_s={single['tok_per_s']:.6g} "
+          f"wall_s={single['wall_s']:.6g} "
+          f"ttft_p50_ms={single['ttft_p50_s'] * 1e3:.6g} "
+          f"ttft_p99_ms={single['ttft_p99_s'] * 1e3:.6g} "
+          f"latency_p50_ms={single['latency_p50_s'] * 1e3:.6g} "
+          f"latency_p99_ms={single['latency_p99_s'] * 1e3:.6g} "
+          f"peak_GiB={refs['peak'] / 2 ** 30:.4g} "
+          f"({refs['seconds']:.4g} s with the build)", flush=True)
+    system = cluster if cluster is not None else cuda_device_model(
+        torch.device("cuda", 0), hbm_bw=hbm_bw,
+        flops=PEAK_FLOPS[torch.float32])
+    rates = {}
+    for s, shards in SHARDED_LAYOUTS:
+        got = [r["serve_sharded"]["layouts"][s] for r in results]
+        r0 = got[0]
+        rel = float((r0["logits"] - refs["logits"]).norm()
+                    / refs["logits"].norm())
+        same = [g["tokens"] == refs["tokens"] for g in got]
+        calls = [g["per_call"] for g in got]
+        launches = sorted({c[1:4] for rank in calls for c in rank})
+        colls = {c[0]: c[4] for c in calls[0]}
+        n_cells = len(calls[0])
+        comm_calls, comm_s = r0["comm"]
+        summ = r0["summary"]
+        peaks = [r["serve_sharded"]["peaks"][s] / 2 ** 30 for r in results]
+        print(f"[serve-sharded] {s} kv_shards={shards}: tokens equal to the "
+              f"single-process engine's on every rank={same} first-chunk "
+              f"logits rel_l2={rel:.3g} (bar {SHARDED_LOGIT_TOL}) "
+              f"cell_calls={n_cells} launches (rmsnorm, flash_attention, "
+              f"ssd_chunk) per cell call on every rank={launches} (want "
+              f"{want})", flush=True)
+        print(f"[serve-sharded] {s} collectives per decode_step call by "
+              f"chunk length {colls}; per cell (greedy and clock included, "
+              f"rank 0) {comm_calls / n_cells:.5g}; host_ms_in_comm per cell "
+              f"{comm_s / n_cells * 1e3:.5g} (rank 0, both replays: "
+              f"{comm_calls} collectives, {comm_s:.5g} s of "
+              f"{r0['seconds']:.5g} s)", flush=True)
+        print(f"[serve-sharded] {s} measured (closed loop, rank 0): "
+              f"tok_per_s={summ['tok_per_s']:.6g} wall_s={summ['wall_s']:.6g} "
+              f"ttft_p50_ms={summ['ttft_p50_s'] * 1e3:.6g} "
+              f"ttft_p99_ms={summ['ttft_p99_s'] * 1e3:.6g} "
+              f"latency_p50_ms={summ['latency_p50_s'] * 1e3:.6g} "
+              f"latency_p99_ms={summ['latency_p99_s'] * 1e3:.6g} "
+              f"peak_GiB_per_rank={','.join(f'{v:.4g}' for v in peaks)}",
+              flush=True)
+        proj = price_serving(mc, system, s, 1, PAR_RANKS, shards,
+                             SHARDED_CFG["max_batch"], traffic,
+                             max_len=max_len, dtype_bytes=4,
+                             prefill_chunk=SHARDED_CFG["prefill_chunk"])
+        on = "the cluster [parallel] calibrated" if cluster else system.name
+        print(f"[serve-sharded] {s} projected (price_serving p1=1 p2="
+              f"{PAR_RANKS} kv_shards={shards} on {on}): "
+              f"tok_per_s={proj.tok_per_s:.6g} "
+              f"t_prefill_ms={proj.t_prefill * 1e3:.6g} "
+              f"t_decode_ms={proj.t_decode * 1e3:.6g} rho={proj.rho:.4g} "
+              f"ttft_p99_ms={proj.ttft_p99 * 1e3:.6g} "
+              f"latency_p99_ms={proj.latency_p99 * 1e3:.6g} "
+              f"feasible={proj.feasible} {proj.limit} (reported, gated on "
+              f"finiteness)", flush=True)
+        rates[s] = (summ["tok_per_s"], proj.tok_per_s)
+        if not all(same):
+            bad = [i for i, ok in enumerate(same) if not ok]
+            fail(f"[serve-sharded] {s}: tokens differ from the single-process "
+                 f"engine's on ranks {bad}")
+        if not rel <= SHARDED_LOGIT_TOL:
+            fail(f"[serve-sharded] {s}: first-chunk logits {rel} relative "
+                 f"L2 over {SHARDED_LOGIT_TOL}")
+        if launches != [want] or not n_cells:
+            fail(f"[serve-sharded] {s}: launches a cell call {launches}, not "
+                 f"{want}")
+        if not all(math.isfinite(v) for v in (proj.tok_per_s, proj.t_prefill,
+                                              proj.t_decode)):
+            fail(f"[serve-sharded] {s}: projection not finite: {proj}")
+    measured = max(rates, key=lambda s: rates[s][0])
+    oracle = max(rates, key=lambda s: rates[s][1])
+    launched = sum(c[1] for r in results for layout in r["serve_sharded"][
+        "layouts"].values() for c in layout["per_call"])
+    print(f"[serve-sharded] winner by tok/s: measured {measured}, oracle "
+          f"{oracle} (reported, not gated: {PAR_RANKS} ranks sharing one "
+          f"card over gloo are not {PAR_RANKS} cards)", flush=True)
+    print(f"[serve-sharded] phase wall time {seconds:.4g} s (the "
+          f"single-process reference and the spawn's serve-sharded part); "
+          f"rmsnorm launches over every rank's cell calls {launched}",
+          flush=True)
+    return launched
+
+
 def _two_sgd_steps(cfg, ctx, batch, accum: int = 1, **fwd_kw) -> tuple:
     """Two SGD steps of a model from seed 0 (``accum`` microbatches a
     step): (first loss, the first step's gradient norm before clipping,
@@ -1940,8 +2216,8 @@ def phase_parallel(dev, hbm_bw: float) -> int:
     gradient norm and the second loss against two single-process steps
     within PAR_LOSS_TOL and PAR_STEP_TOL. Fig. 3 at p = 4:
     calibrate_cluster on the mesh, then validate over PAR_ORACLE; reported,
-    gated on finiteness only. Returns the kernel's launches over all
-    ranks."""
+    gated on finiteness only. Returns the conv kernel's launches over all
+    ranks and the rmsnorm kernel's launches of the serve-sharded phase."""
     t_phase = time.perf_counter()
     refs = {"logits": {}, "train": {}, "floor": {}}
     ctx_k = ShardingCtx(dev, use_pallas=True)
@@ -1974,6 +2250,7 @@ def phase_parallel(dev, hbm_bw: float) -> int:
     t0 = time.perf_counter()
     refs["lm_pipe"] = _lm_pipeline_refs(dev)
     t_lm_pipe_ref = time.perf_counter() - t0
+    refs["serve"] = _serve_sharded_refs(dev)
     from repro_torch.launch.spawn import run_ranks
     results = run_ranks(_parallel_rank, PAR_RANKS, hbm_bw, backend="gloo",
                         device="cuda", model=PAR_MODEL, timeout_s=900)
@@ -2061,15 +2338,19 @@ def phase_parallel(dev, hbm_bw: float) -> int:
     t_lm = t_lm_ref + r0["lm"]["seconds"]
     t_lm_pipe = t_lm_pipe_ref + r0["lm_pipe"]["seconds"]
     t_summa = r0["summa"]["seconds"]
-    own = time.perf_counter() - t_phase - t_pipe - t_lm - t_lm_pipe - t_summa
+    t_serve = refs["serve"]["seconds"] + r0["serve_sharded"]["seconds"]
+    own = time.perf_counter() - t_phase - t_pipe - t_lm - t_lm_pipe \
+        - t_summa - t_serve
     print(f"[parallel] phase wall time {own:.4g} s (the pipeline, "
-          f"lm-parallel, lm-pipeline and summa phases' parts excluded)",
-          flush=True)
+          f"lm-parallel, lm-pipeline, summa and serve-sharded phases' parts "
+          f"excluded)", flush=True)
     _report_pipeline(results, refs["pipe"], rows, note, t_pipe, cluster)
     _report_lm_parallel(results, refs["lm"], t_lm)
     _report_lm_pipeline(results, refs["lm_pipe"], t_lm_pipe)
     _report_summa(results, refs["lm"], t_summa)
-    return total
+    rms = _report_serve_sharded(results, refs["serve"], t_serve, cluster,
+                                hbm_bw)
+    return total, rms
 
 
 
@@ -2236,10 +2517,10 @@ class _FirstLogits(Engine):
         super().__init__(*args)
         self.keep, self.first_logits = set(keep), {}
 
-    def _first_token(self, stats, logits):
+    def _first_token(self, stats, logits, last):
         if stats.rid in self.keep:
-            self.first_logits[stats.rid] = logits.clone()
-        return super()._first_token(stats, logits)
+            self.first_logits[stats.rid] = logits[0, last].clone()
+        return super()._first_token(stats, logits, last)
 
 
 def _solo_greedy(model, ctx, prompt, max_new: int, max_len: int):
@@ -2359,14 +2640,16 @@ def main():
     for arch, batch in TRAIN_RUNS:
         phase_train(arch, batch)
     hbm_bw = phase_oracle(dev)
-    conv["launches"] += phase_parallel(dev, hbm_bw)
+    par_conv, par_rms = phase_parallel(dev, hbm_bw)
+    conv["launches"] += par_conv
     qwen = phase_serve(dev, "qwen1.5-4b")
     mamba = phase_serve(dev, "mamba2-780m")
     phase_fp32_serve(dev, "mamba2-780m")
     phase_lm_train(dev)
-    # rmsnorm runs on both LM serving paths and the engine: its launches
-    # are the three runs' sum
-    rms["launches"] = qwen[0] + mamba[0] + phase_engine(dev, hbm_bw)
+    # rmsnorm runs on both LM serving paths and the engine, on one card and
+    # across ranks: its launches are the four runs' sum
+    rms["launches"] = qwen[0] + mamba[0] + phase_engine(dev, hbm_bw) \
+        + par_rms
     flash["launches"], ssd["launches"] = qwen[1], mamba[2]
     print(json.dumps({"kernels": [conv, rms, flash, ssd]}))
     print(smi)

@@ -23,7 +23,8 @@ the (p/(r·c), r, c) grid of ``grid`` = (r, c) over the same world
 p2 = r·c, p2r = r, p2c = c, as the reference does; a CNN or an SSM model
 there raises (ROADMAP queue 1 item 8). "ep" raises, naming its ROADMAP
 item. ``measure_serving`` replays a request trace through the serving
-engine on one device.
+engine, on one device or across the ranks of a (1, p2) mesh under
+serve_tp or serve_seqkv.
 
 The reference's ``validate`` never measures the pipeline on a CNN: it
 bounds the stage count by ``cfg.n_layers``, which the CNN configs lack, so
@@ -258,20 +259,37 @@ def measure_serving(model, ctx: ShardingCtx, strategy: str, serve_cfg,
     ServeReport: the tok/s and latency percentiles the serving oracle is
     validated against.
 
+    ``strategy`` is a serving layout, "serve_tp" or "serve_seqkv". Across
+    ranks (a sharded ``ctx`` over a (1, p2) mesh; a data axis above 1
+    raises, ROADMAP queue 1 item 7) the replay runs under that layout's
+    rules at width p2, with ``kv_shards`` 1 (serve_tp, the cache split on
+    its kv heads) or p2 (serve_seqkv, split on its span), as the serving
+    oracle prices them; one device serves either at width 1 with one
+    shard. ``model`` is whole (this rank's blocks are cut here) or
+    already this rank's blocks (``launch.build.build_model`` on the ctx:
+    both layouts place the weights alike, and a full-width model whole on
+    every rank would not fit). Every rank runs the replay and returns its
+    report; rank 0's times are the ones to read.
+
     ``warmup`` replays the trace once first (and ``reset``s), so the first
     calls' costs (cuBLAS's choices, the kernels' builds) stay out of the
     measured wall clock; ``honor_arrivals=False`` (the default) replays
-    closed-loop, measuring capacity rather than queueing. One device and
-    ``serve_tp`` at width 1 is the only layout: the sharded layouts
-    (``serve_tp`` wider than 1, ``serve_seqkv``) are ROADMAP queue 1
-    item 6."""
-    from ..serve.engine import Engine
-    width = ctx.mesh.size if ctx.sharded else 1
-    if strategy != "serve_tp" or width != 1 or serve_cfg.kv_shards != 1:
-        raise NotImplementedError(
-            f"serving layout {strategy!r} at width {width}, kv_shards="
-            f"{serve_cfg.kv_shards}: the port serves serve_tp on one device; "
-            f"the sharded serving layouts are ROADMAP queue 1 item 6")
+    closed-loop, measuring capacity rather than queueing."""
+    from ..serve.engine import Engine, serving_mesh
+    if strategy not in ("serve_tp", "serve_seqkv"):
+        raise ValueError(f"serving layout {strategy!r}: the engine serves "
+                         f"under serve_tp or serve_seqkv")
+    width = 1
+    if ctx.sharded:
+        ctx = replace(ctx, rules=make_rules(strategy))
+        serving_mesh(ctx)
+        width = ctx.mesh.shape["model"]
+        if not all(hasattr(p, "place") for p in model.parameters()):
+            model = sharded_copy(model, ctx)
+    shards = width if strategy == "serve_seqkv" else 1
+    if serve_cfg.kv_shards != shards:
+        raise ValueError(f"{strategy} at width {width} takes kv_shards="
+                         f"{shards}, not {serve_cfg.kv_shards}")
     eng = Engine(model, ctx, serve_cfg)
     if warmup:
         eng.run(requests, honor_arrivals=False)

@@ -6,6 +6,9 @@ continuous-batching engine behind a traffic replay.
         --prefill-chunk 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
         --smoke --device cpu --closed-loop
+    PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 \\
+        -m repro_torch.launch.serve --arch qwen1.5-4b --smoke --device cpu \\
+        --closed-loop --strategy serve_seqkv
 
 Thin glue: the engine (``serve/engine.py``) owns the request queue, the
 paged KV pool and the prefill and decode cells. This file builds the (smoke
@@ -16,11 +19,17 @@ plain version only for a tensor on the CPU), generates the trace, replays
 it (open-loop against ``--rate``, or ``--closed-loop``) and prints the
 report; ``--json-out`` writes it.
 
-One device, ``serve_tp`` at width 1, is the only layout the port serves:
-``--strategy serve_seqkv``, ``--kv-shards`` above 1 and a ``torchrun``
-world raise (the sharded serving layouts are ROADMAP queue 1 item 6), and
-``--strategy auto`` raises (the auto-tuner and the cluster flags that
-describe the machine it tunes for are item 7).
+Under ``torchrun`` (or a spawner that set its variables and initialised
+the world) every rank serves on a (1, n) mesh of the n ranks, as the
+reference's ``make_host_mesh(model=n)``: ``--strategy serve_tp`` splits
+the weights and the cache's kv heads over them, ``serve_seqkv`` the
+weights and the cache's span (``--kv-shards``, by default n under
+serve_seqkv and 1 otherwise; ``max_len`` is aligned to
+``prefill_chunk·kv_shards``, as the reference aligns it). The transport is
+``--backend``: nccl (a card a rank; the default on cuda) or gloo (ranks
+sharing a card; the default on the cpu). Rank 0 prints and writes
+``--json-out``. ``--strategy auto`` raises: the auto-tuner and the cluster
+flags that describe the machine it tunes for are ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -29,32 +38,45 @@ import json
 import os
 import time
 
+import torch.distributed as dist
+
 from ..configs import get_config
 from ..nn.module import ShardingCtx
+from ..parallel.strategies import make_rules
 from ..serve import Engine, ServeConfig, TrafficModel
 from .build import build_model
+from .mesh import init_from_env, make_host_mesh
+
+LAYOUTS = ("serve_tp", "serve_seqkv")
 
 
-def trace_max_len(trace, prefill_chunk: int, gen: int) -> int:
+def trace_max_len(trace, prefill_chunk: int, gen: int,
+                  kv_shards: int = 1) -> int:
     """Per-sequence capacity a trace needs: its longest prompt padded to
-    whole prefill chunks, plus the generation, rounded up to a whole chunk
-    (the cache span must be a multiple of both the block span and the
-    chunk, and the chunk is a whole number of block spans)."""
+    whole prefill chunks, plus the generation, rounded up to a whole
+    multiple of ``prefill_chunk·kv_shards`` (each shard's span must be a
+    multiple of both the block span and the chunk, and the chunk is a whole
+    number of block spans)."""
     longest = max(len(r.prompt) for r in trace)
     need = -(-longest // prefill_chunk) * prefill_chunk + gen
-    return -(-need // prefill_chunk) * prefill_chunk
+    align = prefill_chunk * kv_shards
+    return -(-need // align) * align
 
 
 def main(argv=None) -> dict:
-    """Replays the trace; returns the report's summary."""
+    """Replays the trace; returns the report's summary (every rank its
+    own)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'; there is no fallback")
     ap.add_argument("--strategy", default="serve_tp",
-                    help="serve_tp (the one layout on one device) | "
-                         "serve_seqkv | 'auto'")
+                    help="serve_tp | serve_seqkv | 'auto'")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="under torchrun: nccl (one rank per card; the "
+                         "default on cuda) or gloo (ranks sharing a card; "
+                         "the default on the cpu)")
     ap.add_argument("--max-batch", type=int, default=4,
                     help="continuous-batch width (decode slots)")
     ap.add_argument("--max-len", type=int, default=None,
@@ -65,7 +87,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefill-chunk", type=int, default=16,
                     help="prompt tokens prefilled per engine step")
     ap.add_argument("--kv-shards", type=int, default=None,
-                    help="cache span shards (1, the default, on one device)")
+                    help="cache span shards (default: the mesh's model "
+                         "size under serve_seqkv, 1 otherwise)")
     # traffic
     ap.add_argument("--rate", type=float, default=8.0,
                     help="request arrival rate (req/s); the trace replays "
@@ -89,15 +112,34 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "--strategy auto needs the oracle's auto-tuner (core/autotune), "
             "ROADMAP queue 1 item 7")
-    kv_shards = 1 if args.kv_shards is None else args.kv_shards
-    if args.strategy != "serve_tp" or kv_shards != 1 or \
-            int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            f"--strategy {args.strategy} with --kv-shards {kv_shards} on "
-            f"{os.environ.get('WORLD_SIZE', '1')} rank(s): the port serves "
-            f"serve_tp on one device; the sharded serving layouts are "
-            f"ROADMAP queue 1 item 6")
-    ctx = ShardingCtx(args.device, use_pallas=True)
+    if args.strategy not in LAYOUTS:
+        raise SystemExit(f"--strategy {args.strategy}: the engine serves "
+                         f"under {LAYOUTS}")
+    world = "WORLD_SIZE" in os.environ
+    # a caller that has initialised the world (launch.spawn) keeps it
+    own = world and not dist.is_initialized()
+    if world:
+        backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+        if own:
+            init_from_env(backend)
+        mesh = make_host_mesh(model=dist.get_world_size(), backend=backend,
+                              device=args.device)
+        ctx = ShardingCtx(mesh.device, use_pallas=True, mesh=mesh,
+                          rules=make_rules(args.strategy))
+    else:
+        ctx = ShardingCtx(args.device, use_pallas=True)
+    try:
+        return _serve(args, cfg, ctx)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, ctx: ShardingCtx) -> dict:
+    width = ctx.mesh.shape["model"] if ctx.sharded else 1
+    log = not ctx.sharded or ctx.mesh.rank == 0
+    kv_shards = args.kv_shards if args.kv_shards is not None else (
+        width if args.strategy == "serve_seqkv" else 1)
     model = build_model(cfg, ctx, smoke=args.smoke, seed=args.seed)
     mc = cfg.smoke_model if args.smoke else cfg.model
 
@@ -105,27 +147,32 @@ def main(argv=None) -> dict:
                            gen_len=args.gen)
     trace = traffic.trace(args.requests, mc.vocab, seed=args.seed)
     chunk = args.prefill_chunk
-    max_len = (-(-args.max_len // chunk) * chunk if args.max_len
-               else trace_max_len(trace, chunk, args.gen))
+    align = chunk * kv_shards
+    max_len = (-(-args.max_len // align) * align if args.max_len
+               else trace_max_len(trace, chunk, args.gen, kv_shards))
 
     scfg = ServeConfig(max_len=max_len, max_batch=args.max_batch,
                        block_tokens=args.block_tokens, prefill_chunk=chunk,
                        kv_shards=kv_shards)
     t0 = time.time()
     eng = Engine(model, ctx, scfg)
-    print(f"engine up in {time.time() - t0:.1f}s: {eng.geo}, "
-          f"{eng.alloc.capacity} blocks, strategy={args.strategy}, "
-          f"device={ctx.device}", flush=True)
+    if log:
+        print(f"engine up in {time.time() - t0:.1f}s: {eng.geo}, "
+              f"{eng.alloc.capacity} blocks, strategy={args.strategy}, "
+              f"mesh={{'data': 1, 'model': {width}}}, device={ctx.device}",
+              flush=True)
 
     report = eng.run(trace, honor_arrivals=not args.closed_loop)
     summary = report.summary()
+    if not log:
+        return summary
     print(json.dumps(summary, indent=1))
     if report.requests:
         print(f"first request's tokens: {report.requests[0].tokens}")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump({"strategy": args.strategy,
-                       "mesh": {"data": 1, "model": 1},
+                       "mesh": {"data": 1, "model": width},
                        "config": {"max_batch": scfg.max_batch,
                                   "max_len": scfg.max_len,
                                   "block_tokens": scfg.block_tokens,

@@ -33,8 +33,15 @@ logits are re-laid out as ``("batch", "seq", "vocab")``, which under the
 paper's tables keeps every row's logits whole (batch or seq claims the
 model axis before vocab); the loss is sum(ce·mask) / max(sum(mask), 1)
 over the whole batch, both sums all-reduced over the ranks that split the
-rows. ``prefill`` and ``decode_step`` run on one device: the sharded
-serving layouts are ROADMAP queue 1 item 6.
+rows. ``prefill`` and ``decode_step`` run across ranks too, as the serving
+layouts place them (serve_tp, serve_seqkv): the tokens, whole on every
+rank, placed ("batch", None), the cache's leaves ``Sharded`` as the rules
+place ``nn.attention.CACHE_AXES``, the same constraint points (under
+serve_tp "seq" claims the model axis, so a prefill chunk's residual is
+split on its sequence where the chunk divides it and a decode step's one
+token stays whole, as ``spec_to_pspec`` falls back); ``greedy`` reads the
+next tokens from the vocab- or sequence-split logits. An SSM layer's
+cache across ranks is not ported (the engine serves attention caches).
 """
 from __future__ import annotations
 
@@ -50,7 +57,8 @@ from ..nn.layers import Embedding, RMSNorm, project
 from ..nn.module import ShardingCtx, fan_in_normal
 from ..nn.ssm import SSDBlock, SSMConfig
 from ..parallel import collectives as C
-from ..parallel.sharded import Sharded, axes_of, param_block
+from ..parallel.sharded import (Sharded, axes_of, block_index, param_block,
+                                placement)
 
 # the reference's block kinds; the port builds "attn" and "ssm"
 KINDS = ("attn", "local_attn", "mla", "moe", "ssm", "rec")
@@ -128,17 +136,30 @@ class Block(nn.Module):
             y, cache = self.mixer.prefill(x, cache, ctx)
         else:
             y, cache = self.mixer.prefill(x, cache, ctx, q_chunk, kv_chunk)
-        return self._ffn(h + y, ctx), cache
+        return self._residual(h + y, ctx), cache
 
     def decode(self, h, cache, pos, ctx: ShardingCtx):
         y, cache = self.mixer.decode(self.norm1(h, ctx), cache, pos, ctx)
-        return self._ffn(h + y, ctx), cache
+        return self._residual(h + y, ctx), cache
 
-    def cache_spec(self, batch: int, max_len: int,
+    def _residual(self, h, ctx: ShardingCtx):
+        """The FFN's residual, re-laid out as the residual stream across
+        ranks (the reference's constraint at the end of each block)."""
+        h = self._ffn(h, ctx)
+        if isinstance(h, Sharded):
+            h = ctx.constrain(h, ("batch", "seq", "act_embed"))
+        return h
+
+    def cache_spec(self, batch: int, max_len: int, shards: int = 1,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
+        """The layer's cache as meta tensors; ``shards`` cuts an attention
+        cache's span where it divides it, else the layer keeps one shard,
+        as the reference's ``Block.cache_spec``."""
         if isinstance(self.mixer, SSDBlock):     # fp32, as the reference's
             return self.mixer.cache_spec(batch)
-        return self.mixer.cache_spec(batch, max_len, dtype)
+        span = max(max_len, 1)
+        sh = shards if span % max(shards, 1) == 0 else 1
+        return self.mixer.cache_spec(batch, span, shards=sh, dtype=dtype)
 
 
 class TransformerLM(nn.Module):
@@ -217,40 +238,76 @@ class TransformerLM(nn.Module):
         loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return loss + aux, {"ce": loss, "aux": aux}
 
-    def cache_spec(self, batch: int, max_len: int,
+    def cache_spec(self, batch: int, max_len: int, shards: int = 1,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
-        return {"blocks": [b.cache_spec(batch, max_len, dtype)
+        return {"blocks": [b.cache_spec(batch, max_len, shards, dtype)
                            for b in self.blocks]}
 
     def prefill(self, tokens, cache, ctx: ShardingCtx, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
         """Prompt pass: returns (last-position logits (B, 1, vocab), cache)."""
-        _one_device(ctx, "prefill")
-        h = self._embed(tokens, ctx)
+        h = self._embed(self._placed(tokens, ctx), ctx)
         for block, c in zip(self.blocks, cache["blocks"], strict=True):
             h, _ = block.prefill(h, c, ctx, q_chunk, kv_chunk)
+        if isinstance(h, Sharded):
+            # the last position of every row, the sequence whole first
+            h = h.relayout(h.place[:1] + ((),) + h.place[2:])
+            return self._logits(Sharded(h.local[:, -1:].contiguous(),
+                                        (h.shape[0], 1, h.shape[2]), h.place,
+                                        h.mesh), ctx), cache
         # contiguous: the norm kernel takes whole rows
         return self._logits(h[:, -1:].contiguous(), ctx), cache
 
     def decode_step(self, token, cache, pos, ctx: ShardingCtx):
         """token: (B, C) int; pos: an int or (B,) tensor, each sequence's
-        first new index. Returns (logits (B, C, vocab), cache)."""
-        _one_device(ctx, "decode")
-        h = self._embed(token, ctx)
+        first new index. Returns (logits (B, C, vocab), cache). Across ranks
+        the cache's leaves are ``Sharded`` (``zeros_like_spec(spec, device,
+        ctx)``), token and pos are whole on every rank, and so are the
+        rows of the logits, a ``Sharded`` split as ("batch", "seq",
+        "vocab") say (``greedy`` reads its tokens)."""
+        h = self._embed(self._placed(token, ctx), ctx)
         for block, c in zip(self.blocks, cache["blocks"], strict=True):
             h, _ = block.decode(h, c, pos, ctx)
         return self._logits(h, ctx), cache
+
+    def _placed(self, tokens, ctx: ShardingCtx):
+        """Tokens every rank holds whole, as a ``Sharded`` placed
+        ("batch", None) across ranks."""
+        if not ctx.sharded or isinstance(tokens, Sharded):
+            return tokens
+        if any(isinstance(b.mixer, SSDBlock) for b in self.blocks):
+            raise NotImplementedError(
+                "an SSM layer's cache across ranks is not ported (the "
+                "serving engine serves attention caches only): ROADMAP "
+                "queue 1 item 6")
+        return Sharded.of(tokens, placement(ctx.mesh, ctx.pspec(
+            ("batch", None), tokens.shape)), ctx.mesh)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
 
-def _one_device(ctx: ShardingCtx, what: str) -> None:
-    if ctx.sharded:
-        raise NotImplementedError(
-            f"{what} across ranks is not ported: the sharded serving "
-            f"layouts (serve_tp wider than 1, serve_seqkv) are ROADMAP "
-            f"queue 1 item 6")
+def greedy(logits) -> torch.Tensor:
+    """The greedy next tokens (B, C) of logits (B, C, vocab), whole on every
+    rank; the first of equal maxima, as ``argmax``. Of a ``Sharded`` a
+    distributed argmax: each rank's (max, index) over its vocab block,
+    gathered over the ranks that split the vocab (their blocks in vocab
+    order), the first block with the largest max taken; then the rows
+    gathered where they are split. It moves 2 numbers a row, not the
+    vocab."""
+    if not isinstance(logits, Sharded):
+        return logits.argmax(-1)
+    mesh, vocab = logits.mesh, logits.place[2]
+    val, idx = logits.local.max(-1)
+    idx = idx + block_index(mesh, logits.shape, logits.place)[2].start
+    if vocab:
+        group = mesh.group(axes_of(mesh, (vocab,)))
+        pair = torch.stack([val.double(), idx.double()], -1)[None]
+        pairs = C.gather_blocks(pair, 0, group)         # (n, b, c, 2)
+        best = pairs[..., 0].argmax(0, keepdim=True)
+        idx = torch.take_along_dim(pairs[..., 1], best, 0)[0].long()
+    rows = logits.place[:2]
+    return Sharded(idx, logits.shape[:2], rows, mesh).full()
 
 
 def _shift(tokens):

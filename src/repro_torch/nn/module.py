@@ -21,10 +21,13 @@ parameters, so the port keeps the rest:
 * ``fan_in_normal`` draws LeCun-normal weights over the same fan axes as
   ``fan_in_init``, from a ``torch.Generator``, where the generator lives.
   JAX's path-keyed draws cannot be reproduced, so parity tests carry JAX's
-  weights over (``bridge.py``).
+  weights over (``bridge.py``). Inside ``placing(fn)`` every parameter made
+  passes through ``fn`` as soon as it is drawn (``launch.build`` cuts it
+  to a rank's block there, so a rank never holds a whole large model).
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
@@ -209,9 +212,24 @@ def constant(shape: Sequence[int], value: float, device: torch.device,
         tuple(shape), value, dtype=dtype, device=device)), axes)
 
 
+_PLACE = []   # the innermost ``placing`` function, if any
+
+
+@contextmanager
+def placing(fn):
+    """Every parameter ``with_axes`` records inside the block is replaced by
+    ``fn(p)`` (a parameter too) as soon as it is made."""
+    _PLACE.append(fn)
+    try:
+        yield
+    finally:
+        _PLACE.pop()
+
+
 def with_axes(p: torch.nn.Parameter, axes) -> torch.nn.Parameter:
     """Records the logical axes on the parameter (as the reference's
-    ``ParamSpec.axes``), checked against LOGICAL_AXES; returns ``p``."""
+    ``ParamSpec.axes``), checked against LOGICAL_AXES; returns ``p`` (inside
+    ``placing(fn)``, ``fn(p)``)."""
     if axes is not None:
         axes = tuple(axes)
         if len(axes) != p.dim():
@@ -221,14 +239,29 @@ def with_axes(p: torch.nn.Parameter, axes) -> torch.nn.Parameter:
             if a is not None and a not in LOGICAL_AXES:
                 raise ValueError(f"unknown logical axis {a!r}")
         p.axes = axes
-    return p
+    return _PLACE[-1](p) if _PLACE else p
 
 
-def zeros_like_spec(spec, device: torch.device | str):
+def zeros_like_spec(spec, device: torch.device | str,
+                    ctx: ShardingCtx | None = None):
     """Zeros of every meta tensor's shape and dtype in a nested dict/list
-    spec (``TransformerLM.cache_spec``), on ``device``."""
+    spec (``TransformerLM.cache_spec``, ``serve.kv_cache.pool_spec``), on
+    ``device``. With a sharded ``ctx`` each leaf is this rank's block of
+    zeros, a ``parallel.sharded.Sharded`` placed by the rules from the
+    logical axes the leaf records (``t.axes``), as the reference's
+    ``tree_init`` places a cache under a mesh."""
     if isinstance(spec, dict):
-        return {k: zeros_like_spec(v, device) for k, v in spec.items()}
+        return {k: zeros_like_spec(v, device, ctx) for k, v in spec.items()}
     if isinstance(spec, list):
-        return [zeros_like_spec(v, device) for v in spec]
-    return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        return [zeros_like_spec(v, device, ctx) for v in spec]
+    if ctx is None or not ctx.sharded:
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    from ..parallel.sharded import Sharded, local_shape, placement
+    axes = getattr(spec, "axes", None)
+    if axes is None:
+        raise ValueError(f"a leaf {tuple(spec.shape)} records no logical "
+                         f"axes; it cannot be placed across ranks")
+    place = placement(ctx.mesh, ctx.pspec(axes, spec.shape))
+    return Sharded(torch.zeros(local_shape(ctx.mesh, spec.shape, place),
+                               dtype=spec.dtype, device=device),
+                   spec.shape, place, ctx.mesh)

@@ -35,13 +35,30 @@ takes them there) and cross every other collective through host buffers
 result's shape (``scripts/lm_train_memory.py`` reckons a sharded step's
 memory that way, with no ranks). The groups come from ``launch.mesh.Mesh.group``. Each
 transfer is a ``record_function`` span named ``comm.<collective>``, which
-``launch.profile_train --strategies`` sums.
+``launch.profile_train --strategies`` sums, and adds one to ``STATS["calls"]``
+and its host seconds to ``STATS["seconds"]`` (the serving phase of
+``chip_smoke.py`` reads both per engine cell).
 """
 from __future__ import annotations
+
+import time
+from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
+
+# every collective this process ran: how many, and the host seconds inside
+STATS = {"calls": 0, "seconds": 0.0}
+
+
+@contextmanager
+def _span(name: str):
+    t0 = time.perf_counter()
+    with record_function(name):
+        yield
+    STATS["calls"] += 1
+    STATS["seconds"] += time.perf_counter() - t0
 
 
 def _host(x: torch.Tensor, stage: bool) -> torch.Tensor:
@@ -53,7 +70,7 @@ def gather_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     (no autograd)."""
     if x.is_meta:
         return torch.cat([x] * group.size, dim)
-    with record_function("comm.all_gather"):
+    with _span("comm.all_gather"):
         src = _host(x, group.stage)
         parts = [torch.empty_like(src) for _ in range(group.size)]
         dist.all_gather(parts, src, group=group.pg)
@@ -65,7 +82,7 @@ def reduce_scatter_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     autograd)."""
     if x.is_meta:
         return x.chunk(group.size, dim)[0].contiguous()
-    with record_function("comm.reduce_scatter"):
+    with _span("comm.reduce_scatter"):
         src = _host(x, group.stage)
         parts = [c.contiguous() for c in src.chunk(group.size, dim)]
         out = torch.empty_like(parts[0])
@@ -75,26 +92,37 @@ def reduce_scatter_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` in a new tensor (no autograd)."""
-    with record_function("comm.all_reduce"):
-        y = x.clone(memory_format=torch.contiguous_format)
-        if not y.is_meta:
+    y = x.clone(memory_format=torch.contiguous_format)
+    if not y.is_meta:
+        with _span("comm.all_reduce"):
             dist.all_reduce(y, group=group.pg)
-        return y
+    return y
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group`` in place (no autograd); ``x`` must be
     contiguous."""
-    with record_function("comm.all_reduce"):
-        if not x.is_meta:
+    if not x.is_meta:
+        with _span("comm.all_reduce"):
             dist.all_reduce(x, group=group.pg)
-        return x
+    return x
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over ``group`` in a new tensor (no autograd)."""
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group.pg)
+    if not y.is_meta:
+        with _span("comm.all_reduce_max"):
+            dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group.pg)
     return y
+
+
+def broadcast_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` overwritten, in place, by the first rank of ``group``'s (no
+    autograd); ``x`` must be contiguous."""
+    with _span("comm.broadcast"):
+        dist.broadcast(x, group.ranks[0], group=group.pg)
+    return x
 
 
 def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
@@ -104,7 +132,7 @@ def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     n = group.size
     if x.is_meta or n == 1 or shift % n == 0:
         return x
-    with record_function("comm.ring_shift"):
+    with _span("comm.ring_shift"):
         send = _host(x, group.stage)
         recv = torch.empty_like(send)
         i = group.index

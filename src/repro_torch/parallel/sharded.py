@@ -224,23 +224,32 @@ def replicas(p: torch.Tensor, mesh) -> tuple[str, ...]:
 
 
 @torch.no_grad()
+def shard_param(p: torch.nn.Parameter, ctx, where: str = "a parameter"
+                ) -> torch.nn.Parameter:
+    """This rank's block of a whole parameter, placed by ``spec_to_pspec``
+    of its logical axes under ``ctx``'s rules."""
+    axes = getattr(p, "axes", None)
+    if axes is None:
+        raise ValueError(f"{where} records no logical axes; it cannot be "
+                         f"placed")
+    mesh = ctx.mesh
+    place = placement(mesh, ctx.pspec(axes, p.shape))
+    idx = block_index(mesh, p.shape, place)
+    q = torch.nn.Parameter(p[idx].contiguous(), p.requires_grad)
+    q.axes, q.place, q.global_shape, q.shard_index = \
+        axes, place, tuple(p.shape), idx
+    return q
+
+
 def shard_params(model: torch.nn.Module, ctx) -> torch.nn.Module:
     """Replaces every parameter of ``model`` (held whole on every rank, drawn
-    from one seed) by this rank's block, placed by ``spec_to_pspec`` of its
-    logical axes under ``ctx``'s rules, in place; returns ``model``."""
-    mesh = ctx.mesh
+    from one seed) by this rank's block (``shard_param``), in place, but
+    those already placed; returns ``model``."""
     for mod in model.modules():
         for name, p in list(mod.named_parameters(recurse=False)):
-            axes = getattr(p, "axes", None)
-            if axes is None:
-                raise ValueError(f"{type(mod).__name__}.{name} records no "
-                                 f"logical axes; it cannot be placed")
-            place = placement(mesh, ctx.pspec(axes, p.shape))
-            idx = block_index(mesh, p.shape, place)
-            q = torch.nn.Parameter(p[idx].contiguous(), p.requires_grad)
-            q.axes, q.place, q.global_shape, q.shard_index = \
-                axes, place, tuple(p.shape), idx
-            setattr(mod, name, q)
+            if not hasattr(p, "place"):
+                setattr(mod, name, shard_param(
+                    p, ctx, f"{type(mod).__name__}.{name}"))
     return model
 
 

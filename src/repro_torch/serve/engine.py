@@ -18,6 +18,20 @@ consumes, run ``model.decode_step`` on it, and scatter back only the
 touched blocks. The reference jits the cells and donates the pool so XLA
 updates it in place; here the pool's tensors are written in place.
 
+Across ranks (a sharded ``ctx``, a (1, p2) mesh of "data" and "model"; a
+data axis above 1 comes with ROADMAP queue 1 item 7) one ``Engine`` runs
+on every rank over the same model's blocks: the pool is each rank's block
+of the reference's (``kv_cache.pool_spec``), split as the ctx's rules
+split the dense cache, serve_tp on its kv heads, serve_seqkv on its
+shards (``kv_shards`` = p2). The reference is one controller; here every
+rank runs the host schedule, which must be the same on every rank or the
+ranks' collectives deadlock. It is: admission, block tables and batch
+rows follow from the requests and the tokens, which every rank holds
+whole (``models.transformer.greedy``, a distributed argmax over the vocab
+split: 2 numbers a row cross the ranks, not the logits), and an open-loop
+replay admits against rank 0's clock, broadcast once a step. The report's
+times are each rank's own; callers read rank 0's.
+
 Positions stay in range. ``Attention.decode`` writes the cache by indexing,
 so a position past ``max_len`` is an error (on the card a device-side
 assert), where the reference's one-hot write drops it. So, as in the
@@ -43,7 +57,9 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from ..models.transformer import greedy
 from ..nn.module import ShardingCtx, zeros_like_spec
+from ..parallel import collectives as coll
 from . import kv_cache as kvc
 
 __all__ = ["ServeConfig", "Request", "RequestStats", "ServeReport",
@@ -59,7 +75,7 @@ class ServeConfig:
     block_tokens: int = 16       # paged-cache allocation granularity
     num_blocks: int | None = None  # pool size; None → every slot can fill
     prefill_chunk: int = 32      # prompt tokens prefilled per engine step
-    kv_shards: int = 1           # cache layout (1 in the port)
+    kv_shards: int = 1           # cache span shards (1 | mesh model size)
     dtype: torch.dtype | None = None   # cache dtype; None → bfloat16
 
 
@@ -145,6 +161,7 @@ class Engine:
     def __init__(self, model, ctx: ShardingCtx, cfg: ServeConfig):
         if not (hasattr(model, "decode_step") and hasattr(model, "prefill")):
             raise ValueError(f"{type(model).__name__} has no decode path")
+        serving_mesh(ctx)
         dtype = cfg.dtype or torch.bfloat16
         self.model, self.ctx, self.cfg = model, ctx, cfg
         geo = kvc.cache_geometry(model, cfg.max_len, shards=cfg.kv_shards,
@@ -158,7 +175,7 @@ class Engine:
         num_blocks = cfg.num_blocks or cfg.max_batch * geo.n_blk + 1
         self.alloc = kvc.BlockAllocator(num_blocks)
         self.pool = zeros_like_spec(kvc.pool_spec(model, geo, num_blocks,
-                                                  dtype), ctx.device)
+                                                  dtype), ctx.device, ctx)
         self.tables = np.full((cfg.max_batch, geo.n_blk), kvc.NULL_BLOCK,
                               np.int64)
         self.slots: list = [None] * cfg.max_batch
@@ -202,12 +219,12 @@ class Engine:
             self._device(tokens), dense, self._device(pos), self.ctx)
         jidx = ((pos % geo.span) // geo.bspan)[:, None]
         kvc.scatter_blocks(self.pool, tables_d, dense, self._device(jidx))
-        return logits[:, -1].argmax(-1)
+        return greedy(logits)[:, -1]
 
-    def _first_token(self, stats: RequestStats, logits: torch.Tensor) -> int:
-        """The greedy token from the logits (vocab,) at a prompt's last
-        position: a device sync."""
-        return int(logits.argmax())
+    def _first_token(self, stats: RequestStats, logits, last: int) -> int:
+        """The greedy token from a prompt chunk's logits (1, C, vocab) at
+        its position ``last``, the prompt's last: a device sync."""
+        return int(greedy(logits)[0, last])
 
     def reset(self) -> None:
         """Forget every request: a fresh replay on the same pool
@@ -223,6 +240,16 @@ class Engine:
     # -- bookkeeping -------------------------------------------------------
     def _now(self) -> float:
         return time.perf_counter() - self._t0
+
+    def _clock(self) -> float:
+        """The engine clock every rank admits against: rank 0's, broadcast
+        (this rank's own on one device)."""
+        if not self.ctx.sharded:
+            return self._now()
+        mesh = self.ctx.mesh
+        t = torch.tensor([self._now()], dtype=torch.float64,
+                         device=mesh.host_device)
+        return float(coll.broadcast_(t, mesh.group(mesh.axes)))
 
     @property
     def n_live(self) -> int:
@@ -300,7 +327,7 @@ class Engine:
             seq.cursor += C
             if seq.cursor >= len(seq.prompt_pad):
                 last = seq.stats.prompt_len - 1 - (seq.cursor - C)
-                tok = self._first_token(seq.stats, logits[0, last])
+                tok = self._first_token(seq.stats, logits, last)
                 seq.stats.tokens.append(tok)
                 seq.stats.first_token = self._now()
                 seq.last_token = tok
@@ -346,7 +373,7 @@ class Engine:
         pending = deque(sorted(requests, key=lambda r: r.arrival))
         self._t0 = time.perf_counter()
         while pending or not self.idle:
-            t = self._now()
+            t = self._clock() if honor_arrivals else self._now()
             while pending and (not honor_arrivals
                                or pending[0].arrival <= t):
                 req = pending.popleft()
@@ -362,3 +389,18 @@ class Engine:
         wall = self._now()
         done = sorted(self.finished, key=lambda s: s.rid)
         return ServeReport(requests=done, wall_s=wall)
+
+
+def serving_mesh(ctx: ShardingCtx) -> None:
+    """Raises for a mesh the engine does not serve on: any axis but "model"
+    above 1 (the reference reaches a serving mesh with a data axis only
+    through ``--strategy auto``)."""
+    if not ctx.sharded:
+        return
+    other = {a: n for a, n in ctx.mesh.shape.items()
+             if a != "model" and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"a serving mesh with {other}: the engine serves (1, p2) "
+            f"meshes; a data axis in serving comes with --strategy auto, "
+            f"ROADMAP queue 1 item 7")

@@ -2,24 +2,31 @@
 ``repro.serve.kv_cache``).
 
 The dense cache the port's attention consumes is, per layer, ``k`` and
-``v`` of ``(B, shards, span, KV, HD)`` (``Attention.cache_spec``; the port
-has one shard, so span = max_len): token ``t`` lives at ``(shard t//span,
-slot t%span)``. Paging keeps the same layout but chops the span into fixed
-``bspan``-slot blocks held in a shared pool:
+``v`` of ``(B, shards, span, KV, HD)`` (``Attention.cache_spec``): token
+``t`` lives at ``(shard t//span, slot t%span)``. Paging keeps the same
+layout but chops the span into fixed ``bspan``-slot blocks held in a shared
+pool:
 
     pool leaf: (num_blocks, shards, bspan, KV, HD), one per layer and per
                k and v
 
 The reference stacks its layers and so its pool leaves; the port's cache is
 a list of per-layer dicts (``{"blocks": [{"k", "v"}, ...]}``), and so is its
-pool. Block ``j`` of a sequence covers slots ``[j·bspan, (j+1)·bspan)``, so
-a sequence of ``L`` tokens owns ``ceil(min(L, span)/bspan)`` blocks and the
-rest of the pool is free for other sequences.
+pool. Block ``j`` of a sequence covers slots ``[j·bspan, (j+1)·bspan)`` in
+every shard, ``block_tokens = shards·bspan`` tokens, so a sequence of ``L``
+tokens owns ``ceil(min(L, span)/bspan)`` blocks and the rest of the pool is
+free for other sequences.
 
-``gather_view`` (an index over the pool's blocks axis and a reshape) builds
-the dense view that ``Attention.decode`` consumes unchanged, a copy;
-``scatter_blocks`` writes the touched blocks of that view back into the
-pool, in place. Exactness against the dense path is gated by
+The pool's leaves record the dense cache's logical axes with the blocks
+axis replicated (``POOL_AXES``), so ``serve_tp`` and ``serve_seqkv`` split
+the pool as they split the dense cache: across ranks each leaf is a
+``parallel.sharded.Sharded`` whose local block is this rank's kv heads
+(serve_tp) or its shards (serve_seqkv) of every block, and the block
+tables are the same on every rank. ``gather_view`` (an index over the
+blocks axis and a reshape) builds, from the local blocks, this rank's
+block of the dense view that ``Attention.decode`` consumes unchanged, a
+copy; ``scatter_blocks`` writes the touched blocks of that view back into
+the local pool, in place. Exactness against the dense path is gated by
 ``max_abs_diff``.
 
 Allocation is host-side and O(1): a free-list ``BlockAllocator`` with
@@ -35,7 +42,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..nn.attention import CACHE_AXES
+from ..parallel.sharded import Sharded, block_index
+
 NULL_BLOCK = 0
+# a pool leaf's logical axes: the dense cache's, its batch dim the blocks
+POOL_AXES = (None,) + CACHE_AXES[1:]
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +97,7 @@ class BlockAllocator:
 class CacheGeometry:
     """Shared shape facts of every attention cache leaf in the model."""
 
-    shards: int        # cache shard dim (1 in the port)
+    shards: int        # cache shard dim (1 | the model axis's size)
     span: int          # slots per shard (max_len // shards)
     bspan: int         # slots per shard per block
     n_blk: int         # blocks per sequence (span // bspan)
@@ -130,12 +142,10 @@ def cache_geometry(model, max_len: int, *, shards: int = 1,
 
     Every leaf must share (shards, span); non-attention caches are rejected
     here, the one reason the serving engine takes attention-only models.
+    A ``shards`` that does not divide ``max_len`` leaves every layer one
+    shard (``Block.cache_spec``), which the coverage check then names.
     """
-    if shards != 1:
-        raise NotImplementedError(
-            f"kv_shards={shards}: the port's caches have one shard; the "
-            f"sharded serving layouts are ROADMAP queue 1 item 6")
-    spec = model.cache_spec(1, max_len, dtype=dtype)
+    spec = model.cache_spec(1, max_len, shards=shards, dtype=dtype)
     geo = None
     kv_bytes = 0
     for _, name, t in _leaves(spec):
@@ -169,26 +179,39 @@ def cache_geometry(model, max_len: int, *, shards: int = 1,
 # ---------------------------------------------------------------------------
 def pool_spec(model, geo: CacheGeometry, num_blocks: int,
               dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The shared block pool as meta tensors, in the cache's tree
-    (``nn.module.zeros_like_spec`` makes it)."""
-    spec = model.cache_spec(1, geo.max_len, dtype=dtype)
+    """The shared block pool as meta tensors, in the cache's tree, each leaf
+    recording ``POOL_AXES`` (``nn.module.zeros_like_spec`` makes it, each
+    rank's blocks across ranks)."""
+    spec = model.cache_spec(1, geo.max_len, shards=geo.shards, dtype=dtype)
     blocks = [{} for _ in spec["blocks"]]
     for i, name, t in _leaves(spec):
         sh, _, tail = _leaf_dims(name, t)
-        blocks[i][name] = torch.empty((num_blocks, sh, geo.bspan) + tail,
-                                      dtype=t.dtype, device="meta")
+        leaf = torch.empty((num_blocks, sh, geo.bspan) + tail,
+                           dtype=t.dtype, device="meta")
+        leaf.axes = POOL_AXES
+        blocks[i][name] = leaf
     return {"blocks": blocks}
+
+
+def _local(t):
+    return t.local if isinstance(t, Sharded) else t
 
 
 def gather_view(pool: dict, tables: torch.Tensor) -> dict:
     """Dense cache of the sequences in ``tables`` (B, n_blk) block ids: an
-    index over the pool's blocks axis and a reshape, a new tensor per leaf.
-    Null-block entries materialise garbage at positions the attention's
-    valid mask (key position ≤ query position) never exposes."""
+    index over the pool's blocks axis and a reshape, a new tensor per leaf
+    (of a ``Sharded`` pool leaf, this rank's block of the dense view, a
+    ``Sharded`` placed as the leaf). Null-block entries materialise garbage
+    at positions the attention's valid mask (key position ≤ query
+    position) never exposes."""
     def one(leaf):
-        g = leaf[tables]                      # (B, nblk, sh, bspan, KV, HD)
+        g = _local(leaf)[tables]              # (B, nblk, sh, bspan, KV, HD)
         B, nblk, sh, bspan = g.shape[:4]
-        return g.transpose(1, 2).reshape(B, sh, nblk * bspan, *g.shape[4:])
+        view = g.transpose(1, 2).reshape(B, sh, nblk * bspan, *g.shape[4:])
+        if not isinstance(leaf, Sharded):
+            return view
+        shape = (B, leaf.shape[1], nblk * bspan) + leaf.shape[3:]
+        return Sharded(view, shape, leaf.place, leaf.mesh)
 
     return {"blocks": [{name: one(leaf) for name, leaf in layer.items()}
                        for layer in pool["blocks"]]}
@@ -197,7 +220,7 @@ def gather_view(pool: dict, tables: torch.Tensor) -> dict:
 def scatter_blocks(pool: dict, tables: torch.Tensor, dense: dict,
                    jidx: torch.Tensor) -> dict:
     """Write blocks ``jidx`` (B, nj) of the dense view back into the pool,
-    in place; returns the pool.
+    in place (the local blocks of both, across ranks); returns the pool.
 
     A decode step touches one block per sequence, a prefill chunk a fixed
     range, so a step writes O(touched blocks), not O(max_len). Rows parked
@@ -209,11 +232,12 @@ def scatter_blocks(pool: dict, tables: torch.Tensor, dense: dict,
     nblk = tables.shape[1]
     rows = torch.arange(jidx.shape[0], device=jidx.device)[:, None]
     for i, name, leaf in _leaves(pool):
-        dl = dense["blocks"][i][name]
+        dl = _local(dense["blocks"][i][name])
         B, sh, span = dl.shape[:3]
         blocks = dl.reshape(B, sh, nblk, span // nblk, *dl.shape[3:]
                             ).transpose(1, 2)         # (B, nblk, sh, bspan, .)
         sel = blocks[rows, jidx]                      # (B, nj, sh, bspan, .)
+        leaf = _local(leaf)
         leaf[ids] = sel.reshape(-1, *sel.shape[2:]).to(leaf.dtype)
     return pool
 
@@ -222,13 +246,20 @@ def max_abs_diff(pool: dict, tables: torch.Tensor, dense: dict,
                  geo: CacheGeometry, length: int) -> float:
     """Exactness gate: largest |paged − dense| over the first ``length``
     token positions of the sequences in ``tables`` against a dense
-    reference cache. 0.0 ⇔ bit-exact (the same dtype on both sides)."""
+    reference cache (across ranks this rank's blocks of both, the dense
+    cache placed as the pool). 0.0 ⇔ bit-exact (the same dtype on both
+    sides)."""
     view = gather_view(pool, tables)
-    slot = torch.arange(geo.max_len).reshape(geo.shards, geo.span)
-    mask = (slot < length)[:, :, None, None]          # (shards, span, 1, 1)
     worst = 0.0
     for i, name, a in _leaves(view):
-        b = dense["blocks"][i][name]
+        b = _local(dense["blocks"][i][name])
+        first = 0
+        if isinstance(a, Sharded):
+            first = block_index(a.mesh, a.shape, a.place)[1].start
+            a = a.local
+        slot = torch.arange(geo.max_len).reshape(geo.shards, geo.span)[
+            first:first + a.shape[1]]
+        mask = (slot < length)[:, :, None, None]      # (shards, span, 1, 1)
         d = (a.float() - b.float()).abs().cpu() * mask
         worst = max(worst, float(d.max()))
     return worst

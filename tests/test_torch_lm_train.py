@@ -224,20 +224,23 @@ def test_trainer_runs_an_lm_on_the_cpu(arch):
 
 
 def test_lm_refusals_name_their_items(monkeypatch):
-    """An LM's prompt pass or decode step across ranks names item 6 (the
-    sharded serving layouts), an MTP model item 10; an LM pipeline without
-    a mesh to stage it on raises; the trainer without CUDA raises."""
+    """An SSM LM's prompt pass or decode step across ranks names item 6
+    (its cache across ranks; an attention LM's runs there, under the
+    serving layouts: tests/test_torch_serve_parallel.py), an MTP model
+    item 10; an LM pipeline without a mesh to stage it on raises; the
+    trainer without CUDA raises."""
     cfg = get_config("qwen1.5-4b")
 
     class _Mesh:
         size, device = 4, torch.device("cpu")
     lm = build_model(cfg, CPU, smoke=True)
+    ssm = build_model(get_config("mamba2-780m"), CPU, smoke=True)
     across = ShardingCtx("cpu", mesh=_Mesh())
     tokens = torch.zeros((2, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        lm.prefill(tokens, None, across)
+        ssm.prefill(tokens, None, across)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        lm.decode_step(tokens[:, :1], None, 8, across)
+        ssm.decode_step(tokens[:, :1], None, 8, across)
     with pytest.raises(ValueError, match="a mesh with a 'model' axis"):
         make_pipeline_train_step(lm, OptimizerConfig(), CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):

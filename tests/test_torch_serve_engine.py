@@ -6,8 +6,9 @@ greedy decode; the port's engine against the JAX package's engine on the
 same parameters and requests (each request's tokens equal: fp32, and the
 logits of the two packages agree to ~1e-6, far from any tie here); every
 cache position the engine writes inside [0, max_len); ``measure_serving``
-and the serving CLI; and the layouts the port refuses."""
+and the serving CLI; and what the port refuses."""
 import json
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -170,23 +171,31 @@ def test_serve_cli_smoke_on_the_cpu(tmp_path):
 
 
 def test_refused_layouts_name_their_items(lms, monkeypatch):
-    """serve_seqkv, kv_shards above 1 and a torchrun world: item 6;
-    --strategy auto: item 7; no CUDA unless the CPU is asked for."""
+    """What raises, and names its item: --strategy auto (item 7); a serving
+    mesh with a data axis above 1, for the engine and measure_serving
+    (item 7); no CUDA unless the CPU is asked for. The sharded serving
+    layouts (item 6) now run: serve_seqkv and kv_shards above 1 on one
+    device here, across ranks in tests/test_torch_serve_parallel.py."""
     lm = lms[2]
     cfg = ServeConfig(max_len=32, dtype=F32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        measure_serving(lm, CPU, "serve_seqkv", cfg, [])
+    rep = measure_serving(lm, CPU, "serve_seqkv", cfg, [])
+    assert rep.requests == []
+    assert Engine(lm, CPU, ServeConfig(max_len=32, kv_shards=2,
+                                       prefill_chunk=16,
+                                       dtype=F32)).geo.shards == 2
     base = ["--arch", "qwen1.5-4b", "--smoke", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        serve.main(base + ["--kv-shards", "2"])
+    summary = serve.main(base + ["--kv-shards", "2", "--closed-loop",
+                                 "--requests", "2"])
+    assert summary["requests"] == 2 and summary["tokens"] == 2 * 16
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         serve.main(base + ["--strategy", "auto"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        Engine(lm, CPU, ServeConfig(max_len=32, kv_shards=2, dtype=F32))
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        serve.main(base)
-    monkeypatch.delenv("WORLD_SIZE")
+    mesh22 = types.SimpleNamespace(shape={"data": 2, "model": 2}, size=4,
+                                   device=torch.device("cpu"))
+    ctx22 = ShardingCtx("cpu", mesh=mesh22)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        Engine(lm, ctx22, cfg)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        measure_serving(lm, ctx22, "serve_tp", cfg, [])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "qwen1.5-4b", "--smoke"])
