@@ -186,18 +186,40 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              the peak memory, beside price_serving("serve_tp", p1 = p2 = 1,
              max_batch 8, the same traffic) on cuda_device_model with phase
              5b's HBM rate and the bf16 peak: reported, gated on finiteness.
+  10. auto  the oracle deploys its own plan (launch.train --strategy
+             auto, core.autotune). The cluster the [oracle] phase calibrated
+             on ResNet-50 (cuda_device_model with the measured HBM rate and
+             FLOP/s) is written to a ClusterSpec JSON and passed as
+             --cluster to every auto run. On one card: ResNet-50 at batch
+             32 and the LMs at LM_TRAIN_SHAPE, 3 steps each: the plan (at
+             p = 1), ms/step, samples or tokens a second and the peak
+             memory; every loss finite. The remat switch: Mamba-2 780m at
+             full width, bf16, at the reference's 4 x 1024 (REMAT_RUNS; the
+             batch LM_TRAIN_SHAPE cut, its plain SSD saving 97.9 GB without
+             remat), and Qwen1.5-4B at 2 x 512, 3 AdamW steps each through
+             make_train_step(remat=True): ms/step, tokens/s and the peak,
+             beside the tuner's projected memory for that point. The fp32
+             smoke Qwen and Mamba with remat on and off from the same
+             weights and batches: the first loss equal, the first gradient
+             norm and the second loss within LM_CPU_TOL. On the [parallel]
+             spawn's 4 ranks: ResNet-50 (full depth, batch 32, as [parallel]
+             trains it) under --strategy auto, the plan at p = 4, the mesh
+             it deployed, the losses (finite), ms/step and every rank's peak.
 Then a JSON line for the kernels, the nvidia-smi line, and the result line.
 It imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import json
 import math
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -578,6 +600,16 @@ ENGINE_CHECKED = (0, 1)
 # launches of (rmsnorm, flash_attention, ssd_chunk) in every engine cell
 # call: 2 norms a layer and the final one, the attention in plain torch
 ENGINE_CELL_LAUNCHES = (81, 0, 0)
+# The auto phase: (arch, batch, seq or None) trained by launch.train
+# --strategy auto on one card, on the cluster [oracle] calibrated
+AUTO_RUNS = (("resnet50", BATCH, None),) + tuple(
+    (arch, b, seq) for arch, (b, seq) in LM_TRAIN_SHAPE.items())
+# the remat switch at full width, bf16: (arch, batch, seq); Mamba-2 780m at
+# the reference's 4 x 1024, the shape LM_TRAIN_SHAPE cut for memory
+REMAT_RUNS = (("mamba2-780m", 4, 1024), ("qwen1.5-4b", 2, 512))
+# --strategy auto on the [parallel] spawn's ranks: ResNet-50 as [parallel]
+# trains it (full depth, global batch 32)
+AUTO_PAR = ("resnet50", BATCH)
 
 
 def fail(msg: str):
@@ -1378,7 +1410,8 @@ def phase_oracle(dev):
     the oracle's projected memory (fp32 values, δ = 4 bytes, SGD's one
     momentum: 4 bytes a parameter) beside the peak of the measured step of
     ``validate(..., cluster=)``. Reports only; no accuracy is gated. Returns
-    the card's HBM rate as measured for the calibration."""
+    the cluster calibrated on ResNet-50 (its system holds the card's HBM
+    rate as measured for the calibration)."""
     ctx = ShardingCtx(dev)
     self_rows, cross_rows, cluster = [], [], None
     for arch, batch_size in ORACLE_RUNS:
@@ -1431,7 +1464,7 @@ def phase_oracle(dev):
     print(f"[oracle] mean accuracy: self-calibrated={mean_self * 100:.4g}% "
           f"calibrated-on-resnet50={mean_cross * 100:.4g}% "
           f"(paper: 86.74% on 1024 V100s)", flush=True)
-    return cluster.system.hbm_bw
+    return cluster
 
 
 def _halo_launches(sites, m: int) -> int:
@@ -1450,9 +1483,10 @@ def _halo_launches(sites, m: int) -> int:
     return n
 
 
-def _parallel_rank(mesh, hbm_bw: float):
+def _parallel_rank(mesh, hbm_bw: float, cluster_json: str):
     """One rank of the parallel phase; rank 0 returns what the parent
-    checks and prints (the others their launch counts)."""
+    checks and prints (the others their launch counts and the auto run's
+    plan and mesh)."""
     from repro_torch.core.calibration import calibrate_cluster
     from repro_torch.core.hardware import cuda_device_model
     from repro_torch.launch.build import shard_batch
@@ -1526,9 +1560,10 @@ def _parallel_rank(mesh, hbm_bw: float):
     out["lm_pipe"] = _lm_pipeline_rank(mesh)
     out["summa"] = _summa_rank(mesh)
     out["serve_sharded"] = _serve_sharded_rank(mesh)
+    out["auto"] = _auto_rank(mesh, cluster_json)
     if mesh.rank == 0:
         return out
-    return {"launches": out["launches"],
+    return {"launches": out["launches"], "auto": out["auto"],
             "pipeline": {"peaks": out["pipeline"]["peaks"]},
             "lm": {"peaks": out["lm"]["peaks"],
                    "kernels": out["lm"]["kernels"]},
@@ -1536,6 +1571,54 @@ def _parallel_rank(mesh, hbm_bw: float):
             "summa": {"peaks": out["summa"]["peaks"],
                       "calls": out["summa"]["calls"]},
             "serve_sharded": out["serve_sharded"]}
+
+
+def _auto_rank(mesh, cluster_json: str) -> dict:
+    """launch.train --strategy auto on the spawn's world (AUTO_PAR): the
+    trainer tunes for the world's size on the card's cluster and shapes
+    its own mesh from the plan (every rank makes its groups in the same
+    order)."""
+    arch, batch = AUTO_PAR
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    out = train.main(["--arch", arch, "--batch", str(batch), "--steps", "3",
+                      "--log-every", "1", "--device", "cuda", "--backend",
+                      "gloo", "--strategy", "auto", "--cluster",
+                      cluster_json])
+    torch.cuda.empty_cache()
+    return dict(out, seconds=time.perf_counter() - t0)
+
+
+def _report_auto_ranks(results):
+    """The [auto] lines of the 4-rank run: the plan, the mesh deployed,
+    the losses, ms/step and every rank's peak."""
+    arch, batch = AUTO_PAR
+    r0 = results[0]["auto"]
+    plan = r0["plan"]
+    print(f"[auto] p={PAR_RANKS} {arch} batch={batch} {plan.describe()} "
+          f"exec={r0['strategy']} mesh={r0['mesh']} "
+          f"switches={plan.switch_str()}", flush=True)
+    losses = r0["losses"]
+    step_ms = statistics.mean(r0["step_s"][1:]) * 1e3
+    print(f"[auto] p={PAR_RANKS} {arch} losses="
+          f"{','.join(f'{v:.6g}' for v in losses)} ms_per_step={step_ms:.6g} "
+          f"first_step_ms={r0['step_s'][0] * 1e3:.6g} "
+          f"samples_per_s={batch / step_ms * 1e3:.6g} "
+          f"projected_ms_per_step={plan.per_iter_s * 1e3:.6g} "
+          f"max_memory_allocated_per_rank={r0['peak_bytes']} "
+          f"projected_mem_bytes={plan.mem_bytes:.6g} "
+          f"run_s={r0['seconds']:.4g}", flush=True)
+    for rank, r in enumerate(results):
+        a = r["auto"]
+        if a["plan"] != plan or a["mesh"] != r0["mesh"]:
+            fail(f"[auto] rank {rank} deployed {a['plan']} on {a['mesh']}, "
+                 f"rank 0 {plan} on {r0['mesh']}")
+    if plan.p != PAR_RANKS or r0["mesh"] is None or \
+            math.prod(r0["mesh"].values()) != PAR_RANKS:
+        fail(f"[auto] p={PAR_RANKS}: plan {plan}, mesh {r0['mesh']}")
+    if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
+        fail(f"[auto] p={PAR_RANKS} {arch} losses {losses}")
 
 
 def _lm_batch(arch: str, dev) -> dict:
@@ -2205,7 +2288,7 @@ def _two_sgd_steps(cfg, ctx, batch, accum: int = 1, **fwd_kw) -> tuple:
     return float(m0["loss"]), float(m0["grad_norm"]), float(m1["loss"])
 
 
-def phase_parallel(dev, hbm_bw: float) -> int:
+def phase_parallel(dev, hbm_bw: float, cluster_json: str) -> int:
     """The paper's CNN strategies across ranks on the card: PAR_RANKS ranks
     share it over gloo (spawned after the build, so no rank compiles).
     Sharded eval with the kernel (ResNet-50 and VGG16, batch 32, ds, the
@@ -2252,8 +2335,9 @@ def phase_parallel(dev, hbm_bw: float) -> int:
     t_lm_pipe_ref = time.perf_counter() - t0
     refs["serve"] = _serve_sharded_refs(dev)
     from repro_torch.launch.spawn import run_ranks
-    results = run_ranks(_parallel_rank, PAR_RANKS, hbm_bw, backend="gloo",
-                        device="cuda", model=PAR_MODEL, timeout_s=900)
+    results = run_ranks(_parallel_rank, PAR_RANKS, hbm_bw, cluster_json,
+                        backend="gloo", device="cuda", model=PAR_MODEL,
+                        timeout_s=900)
     r0 = results[0]
     note = (f"{PAR_RANKS} ranks timesharing one card over gloo (host-staged "
             f"collectives): the counterpart of the reference's virtual host "
@@ -2340,16 +2424,17 @@ def phase_parallel(dev, hbm_bw: float) -> int:
     t_summa = r0["summa"]["seconds"]
     t_serve = refs["serve"]["seconds"] + r0["serve_sharded"]["seconds"]
     own = time.perf_counter() - t_phase - t_pipe - t_lm - t_lm_pipe \
-        - t_summa - t_serve
+        - t_summa - t_serve - r0["auto"]["seconds"]
     print(f"[parallel] phase wall time {own:.4g} s (the pipeline, "
-          f"lm-parallel, lm-pipeline, summa and serve-sharded phases' parts "
-          f"excluded)", flush=True)
+          f"lm-parallel, lm-pipeline, summa, serve-sharded and auto "
+          f"phases' parts excluded)", flush=True)
     _report_pipeline(results, refs["pipe"], rows, note, t_pipe, cluster)
     _report_lm_parallel(results, refs["lm"], t_lm)
     _report_lm_pipeline(results, refs["lm_pipe"], t_lm_pipe)
     _report_summa(results, refs["lm"], t_summa)
     rms = _report_serve_sharded(results, refs["serve"], t_serve, cluster,
                                 hbm_bw)
+    _report_auto_ranks(results)
     return total, rms
 
 
@@ -2454,13 +2539,13 @@ def _fp32_smoke(arch: str):
         mc, dtype=torch.float32, **sub))
 
 
-def _two_adamw_steps(model, device) -> tuple[float, float, float]:
+def _two_adamw_steps(model, device, **fwd_kw) -> tuple[float, float, float]:
     """(first loss, first gradient norm, second loss) of two AdamW steps
     of ``model`` on ``device``, batches 0 and 1 of the seeded token
     stream."""
     ctx = ShardingCtx(device)
     opt = OptimizerConfig()
-    step = make_train_step(model, opt, ctx, q_chunk=LM_CPU_SEQ)
+    step = make_train_step(model, opt, ctx, q_chunk=LM_CPU_SEQ, **fwd_kw)
     state = train_state(model, opt)
     loader = Loader(train.data_config_for(model.cfg, LM_CPU_BATCH,
                                           LM_CPU_SEQ, seed=0), device)
@@ -2507,6 +2592,122 @@ def phase_lm_train(dev):
             if not r <= tol:
                 fail(f"[lm-train] {arch} fp32 smoke {n}: card vs cpu "
                      f"relative {r} over {tol}")
+
+
+def _write_cluster(cluster) -> str:
+    """The calibrated ClusterSpec as a JSON file (``--cluster``), in the
+    temporary directory, removed when the script exits."""
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_cluster_", suffix=".json")
+    with os.fdopen(fd, "w") as f:
+        json.dump(cluster.to_json(), f)
+    atexit.register(os.unlink, path)
+    return path
+
+
+def _adamw_steps_ms(arch: str, batch: int, seq: int, dev, **fwd_kw):
+    """3 AdamW steps of ``arch`` at full width (seed 0, the seeded token
+    stream) through make_train_step: (losses, step ms, peak bytes)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    ctx = ShardingCtx(dev)
+    model = build_model(cfg, ctx, seed=0)
+    opt = OptimizerConfig(lr=3e-3)
+    step = make_train_step(model, opt, ctx, q_chunk=min(256, seq), **fwd_kw)
+    state = train_state(model, opt)
+    loader = Loader(train.data_config_for(cfg.model, batch, seq, seed=0), dev)
+    losses, ms = [], []
+    for i in range(3):
+        b = loader.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step
+    torch.cuda.empty_cache()
+    return losses, ms, peak
+
+
+def phase_auto(dev, cluster, cluster_json: str):
+    """Phase 10 of the docstring, its one-card part."""
+    from repro_torch.core.autotune import autotune, stats_for_model
+    from repro_torch.parallel.schedules import (pipeline_block_count,
+                                                pipeline_supported)
+    t_phase = time.perf_counter()
+    print(f"[auto] cluster {cluster.name}: peak_flops="
+          f"{cluster.peak_flops:.6g} hbm_bw={cluster.hbm_bw:.6g} "
+          f"mem_capacity={cluster.mem_capacity:.6g}", flush=True)
+    for arch, batch, seq in AUTO_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train.main(["--arch", arch, "--batch", str(batch), "--steps",
+                          "3", "--log-every", "1", "--device", "cuda",
+                          "--strategy", "auto", "--cluster", cluster_json]
+                         + (["--seq", str(seq)] if seq else []))
+        run_s = time.perf_counter() - t0
+        plan, losses = out["plan"], out["losses"]
+        if plan is None or plan.p != 1 or len(losses) != 3 or not all(
+                math.isfinite(v) for v in losses):
+            fail(f"[auto] {arch}: plan {plan}, losses {losses}")
+        step_ms = statistics.mean(out["step_s"][1:]) * 1e3
+        rate = (f"tokens_per_s={batch * seq / step_ms * 1e3:.6g}" if seq
+                else f"samples_per_s={batch / step_ms * 1e3:.6g}")
+        print(f"[auto] p=1 {arch} batch={batch}"
+              + (f" seq={seq}" if seq else "")
+              + f" {plan.describe()} exec={out['strategy']} "
+              f"switches={plan.switch_str()} losses="
+              f"{','.join(f'{v:.6g}' for v in losses)} "
+              f"ms_per_step={step_ms:.6g} "
+              f"first_step_ms={out['step_s'][0] * 1e3:.6g} {rate} "
+              f"projected_ms_per_step={plan.per_iter_s * 1e3:.6g} "
+              f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+              f"projected_mem_bytes={plan.mem_bytes:.6g} "
+              f"run_s={run_s:.4g}", flush=True)
+        del out
+        torch.cuda.empty_cache()
+    for arch, batch, seq in REMAT_RUNS:
+        cfg = get_config(arch)
+        losses, ms, peak = _adamw_steps_ms(arch, batch, seq, dev, remat=True)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"[auto] remat {arch} losses {losses}")
+        plan = autotune(stats_for_model(cfg.model, seq),
+                        TimeModel(cluster.system),
+                        cluster.oracle_config(B=batch, D=batch), 1,
+                        fallback=cfg.strategy, cluster=cluster,
+                        allow_pipeline=pipeline_supported(cfg.model) is None,
+                        max_stages=pipeline_block_count(cfg.model))
+        step_ms = statistics.mean(ms[1:])
+        print(f"[auto] remat {arch} bf16 batch={batch} seq={seq} steps=3 "
+              f"losses={','.join(f'{v:.6g}' for v in losses)} "
+              f"ms_per_step={step_ms:.6g} first_step_ms={ms[0]:.6g} "
+              f"tokens_per_s={batch * seq / step_ms * 1e3:.6g} "
+              f"max_memory_allocated={peak} "
+              f"(card {torch.cuda.get_device_properties(dev).total_memory}); "
+              f"the tuner at this point: {plan.describe()}", flush=True)
+    names = ("first_loss", "grad_norm", "second_loss")
+    for arch in ("qwen1.5-4b", "mamba2-780m"):
+        base = build_model(_fp32_smoke(arch), ShardingCtx("cpu"),
+                           smoke=True, seed=0)
+        off = _two_adamw_steps(copy.deepcopy(base).to(dev), dev)
+        on = _two_adamw_steps(copy.deepcopy(base).to(dev), dev, remat=True)
+        rel = [abs(a - b) / abs(b) for a, b in zip(on, off)]
+        print(f"[auto] remat {arch} fp32 smoke, on vs off on the card: "
+              + " ".join(f"{n}={a:.9g}/{b:.9g} rel={r:.3g}"
+                         for n, a, b, r in zip(names, on, off, rel)),
+              flush=True)
+        if on[0] != off[0]:
+            fail(f"[auto] remat {arch}: first loss {on[0]} with remat, "
+                 f"{off[0]} without")
+        for n, r, tol in zip(names[1:], rel[1:], LM_CPU_TOL[1:]):
+            if not r <= tol:
+                fail(f"[auto] remat {arch} fp32 smoke {n}: on vs off "
+                     f"relative {r} over {tol}")
+    print(f"[auto] phase wall time {time.perf_counter() - t_phase:.4g} s "
+          f"(the 4-rank run's part is in the [parallel] spawn)", flush=True)
 
 
 class _FirstLogits(Engine):
@@ -2639,13 +2840,16 @@ def main():
     conv["launches"] = sum(phase_eval(arch) for arch in EVAL_SITES)
     for arch, batch in TRAIN_RUNS:
         phase_train(arch, batch)
-    hbm_bw = phase_oracle(dev)
-    par_conv, par_rms = phase_parallel(dev, hbm_bw)
+    cluster = phase_oracle(dev)
+    hbm_bw = cluster.system.hbm_bw
+    cluster_json = _write_cluster(cluster)
+    par_conv, par_rms = phase_parallel(dev, hbm_bw, cluster_json)
     conv["launches"] += par_conv
     qwen = phase_serve(dev, "qwen1.5-4b")
     mamba = phase_serve(dev, "mamba2-780m")
     phase_fp32_serve(dev, "mamba2-780m")
     phase_lm_train(dev)
+    phase_auto(dev, cluster, cluster_json)
     # rmsnorm runs on both LM serving paths and the engine, on one card and
     # across ranks: its launches are the four runs' sum
     rms["launches"] = qwen[0] + mamba[0] + phase_engine(dev, hbm_bw) \

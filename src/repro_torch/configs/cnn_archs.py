@@ -18,7 +18,7 @@ def resnet50() -> ArchConfig:
     return ArchConfig(
         name="resnet50", family="cnn", model=RESNET50,
         smoke_model=ResNetConfig("resnet50-smoke", (1, 1, 1, 1), n_classes=10),
-        source="[paper Table 5; He et al. 2016]")
+        source="[paper Table 5; He et al. 2016]", strategy="data")
 
 
 @register("resnet152")
@@ -26,7 +26,7 @@ def resnet152() -> ArchConfig:
     return ArchConfig(
         name="resnet152", family="cnn", model=RESNET152,
         smoke_model=ResNetConfig("resnet152-smoke", (1, 2, 2, 1), n_classes=10),
-        source="[paper Table 5; He et al. 2016]")
+        source="[paper Table 5; He et al. 2016]", strategy="data")
 
 
 @register("vgg16")
@@ -34,7 +34,8 @@ def vgg16() -> ArchConfig:
     return ArchConfig(
         name="vgg16", family="cnn", model=VGGConfig(),
         smoke_model=VGGConfig(name="vgg16-smoke", n_classes=10, img=32),
-        source="[paper Table 5; Simonyan & Zisserman 2015]")
+        source="[paper Table 5; Simonyan & Zisserman 2015]",
+        strategy="data")
 
 
 @register("cosmoflow")
@@ -42,4 +43,4 @@ def cosmoflow() -> ArchConfig:
     return ArchConfig(
         name="cosmoflow", family="cnn", model=CosmoFlowConfig(img=128),
         smoke_model=CosmoFlowConfig(img=16, n_conv=2, width=8),
-        source="[paper Table 5; Mathuriya et al. 2018]")
+        source="[paper Table 5; Mathuriya et al. 2018]", strategy="ds")

@@ -67,7 +67,7 @@ def mamba2_780m() -> ArchConfig:
         name="mamba2-780m", family="lm",
         model=mk(1536, 48, 50280, 128),
         smoke_model=mk(64, 4, 512, 16, chunk=16),
-        source="[arXiv:2405.21060; unverified]")
+        source="[arXiv:2405.21060; unverified]", strategy="df_zero1")
 
 
 # qwen1.5-4b — dense, QKV bias, kv=heads (MHA) [hf:Qwen/Qwen1.5-0.5B; hf]
@@ -83,4 +83,5 @@ def qwen15_4b() -> ArchConfig:
         name="qwen1.5-4b", family="lm",
         model=mk(2560, 40, 20, 20, 128, 6912, 151936),
         smoke_model=mk(64, 2, 4, 4, 16, 128, 512),
-        source="[hf:Qwen/Qwen1.5-0.5B; hf]")
+        source="[hf:Qwen/Qwen1.5-0.5B; hf]",
+        shape_strategy={"decode_32k": "serve_seqkv"})

@@ -532,17 +532,35 @@ def _smoke() -> int:
 
 
 def _resolve_strategies(names) -> tuple:
-    """Check CLI --strategies names against the oracle's (STRATEGY_NAMES),
-    in order, without repeats. Unknown names raise with the valid set, so a
-    typo cannot price an empty or partial lattice. (The JAX package also
-    takes its executable rules-table names here; the port's rules tables
-    come with the parallel slice.)"""
-    unknown = [n for n in names if n not in STRATEGY_NAMES]
+    """Map CLI --strategies names onto oracle strategy names.
+
+    Accepts both the oracle spellings (STRATEGY_NAMES) and the executable
+    rules-table spellings (``parallel.strategies.list_strategies()``, e.g.
+    ``df_zero3`` → ``df`` via ``autotune.ORACLE_OF_EXEC``), in order,
+    without repeats. Unknown names raise with BOTH valid sets, so a typo
+    cannot price an empty or partial lattice. The executable namespace is
+    imported here, not at the top: ``core.autotune`` imports this module.
+    """
+    exec_names: tuple = ()
+    oracle_of_exec: dict = {}
+    if any(n not in STRATEGY_NAMES for n in names):
+        from ..autotune import ORACLE_OF_EXEC as oracle_of_exec
+        from ...parallel.strategies import list_strategies
+        exec_names = tuple(list_strategies())
+    out, unknown = [], []
+    for n in names:
+        if n in STRATEGY_NAMES:
+            out.append(n)
+        elif n in oracle_of_exec:
+            out.append(oracle_of_exec[n])
+        else:
+            unknown.append(n)
     if unknown:
-        raise ValueError(f"unknown strategy name(s) {unknown}; valid names: "
-                         f"{sorted(STRATEGY_NAMES)}")
+        valid = sorted(set(STRATEGY_NAMES) | set(exec_names))
+        raise ValueError(
+            f"unknown strategy name(s) {unknown}; valid names: {valid}")
     seen: set = set()
-    return tuple(n for n in names if not (n in seen or seen.add(n)))
+    return tuple(n for n in out if not (n in seen or seen.add(n)))
 
 
 def main(argv=None) -> int:
@@ -573,9 +591,10 @@ def main(argv=None) -> int:
                          "gradient exchange hide under compute, DESIGN.md "
                          "§10)")
     ap.add_argument("--strategies", default=",".join(STRATEGY_NAMES),
-                    help="comma-separated strategy subset of the oracle "
-                         f"names ({'/'.join(STRATEGY_NAMES)}); unknown "
-                         "names are rejected with the valid set")
+                    help="comma-separated strategy subset; oracle names "
+                         f"({'/'.join(STRATEGY_NAMES)}) or executable "
+                         "rules-table names (parallel/strategies.py); "
+                         "unknown names are rejected with the valid set")
     ap.add_argument("--schedule", default="all",
                     help="pipeline schedule axis: 'all' (default) sweeps "
                          f"{'/'.join(PIPELINE_SCHEDULES)} as extra pipeline "

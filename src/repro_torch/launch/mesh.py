@@ -12,6 +12,7 @@ world out as the ("data", "model_r", "model_c") grid of the 2-D SUMMA
 strategy (``parallel/summa.py``), the counterpart of the reference's
 ``make_grid_mesh(p1, p2r, p2c)``: rank ``r`` at row-major coordinates
 again, and a group for each axis and each ordered tuple of axes.
+``mesh_for_plan`` shapes the mesh an auto-tuned plan deploys on.
 
 The transport is an argument, never a fallback:
 
@@ -189,6 +190,23 @@ def make_host_mesh(n: int | None = None, model: int | None = None, *,
     data, model = default_split(n, model)
     return Mesh(data, model, backend=backend,
                 device=rank_device(backend, device))
+
+
+def mesh_for_plan(plan, *, backend: str,
+                  device: str | torch.device) -> Mesh:
+    """The mesh an auto-tuned ``core.autotune.TunedPlan`` deploys on, over
+    the initialised world (counterpart of the reference's
+    ``mesh_for_plan``): the (data, model_r, model_c) grid of
+    ``plan.mesh_spec()`` for a summa plan (``make_grid_mesh``), the
+    (data, model) = (p1, p2) mesh otherwise."""
+    if plan.p != dist.get_world_size():
+        raise ValueError(f"the plan is for p={plan.p}, the world has "
+                         f"{dist.get_world_size()} ranks")
+    mesh = make_host_mesh(model=plan.p2, backend=backend, device=device)
+    shape, axes = plan.mesh_spec()
+    if axes == GRID_AXES:
+        return make_grid_mesh(mesh, *shape)
+    return mesh
 
 
 def init_from_env(backend: str, timeout=None) -> None:

@@ -28,8 +28,9 @@ serve_seqkv and 1 otherwise; ``max_len`` is aligned to
 ``prefill_chunk·kv_shards``, as the reference aligns it). The transport is
 ``--backend``: nccl (a card a rank; the default on cuda) or gloo (ranks
 sharing a card; the default on the cpu). Rank 0 prints and writes
-``--json-out``. ``--strategy auto`` raises: the auto-tuner and the cluster
-flags that describe the machine it tunes for are ROADMAP queue 1 item 7.
+``--json-out``. ``--strategy auto`` raises: serving a tuned plan needs the
+data axis in serving (``serve/engine.serving_mesh``), the rest of ROADMAP
+queue 1 item 7 (the trainer's ``--strategy auto`` is ported).
 """
 from __future__ import annotations
 
@@ -110,8 +111,8 @@ def main(argv=None) -> dict:
             f"the serving engine decodes lm archs, not {cfg.family}")
     if args.strategy == "auto":
         raise NotImplementedError(
-            "--strategy auto needs the oracle's auto-tuner (core/autotune), "
-            "ROADMAP queue 1 item 7")
+            "--strategy auto in serving deploys a tuned plan's data axis "
+            "(serve/engine.serving_mesh), ROADMAP queue 1 item 7")
     if args.strategy not in LAYOUTS:
         raise SystemExit(f"--strategy {args.strategy}: the engine serves "
                          f"under {LAYOUTS}")

@@ -16,6 +16,9 @@
     PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 \
         -m repro_torch.launch.train --arch mamba2-780m --smoke --steps 2 \
         --batch 8 --seq 32 --device cpu --strategy pipeline
+    PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch resnet50 --smoke --steps 2 \
+        --batch 8 --device cpu --strategy auto
 
 Trains the paper's CNNs (``--arch`` resnet50, resnet152, vgg16 or
 cosmoflow) and the LMs (qwen1.5-4b, mamba2-780m; ``--seq`` tokens a
@@ -47,11 +50,28 @@ over the oracle's per-block costs (an LM's per-layer costs at ``--seq``;
 its embedding runs on the first stage, its head and loss on the last).
 ``--accum > 1`` is refused there: the microbatches are the accumulation.
 
+``--strategy auto`` lets the oracle decide, as the reference's trainer
+does: ``core.autotune`` tunes (strategy, p1 × p2 split, memory switches,
+pipeline schedule) for the world's size (1 without a world) on the machine
+the cluster flags describe (``--system``, default ``host``; ``--cluster``
+takes a fitted ``ClusterSpec`` JSON), at ``--batch`` and ``--seq``; rank 0
+prints ``TunedPlan.describe()``. The plan is then deployed: its rules
+table (``exec_strategy("train")``) on the mesh ``launch.mesh.mesh_for_plan``
+shapes (the (data, model_r, model_c) grid for a summa plan), ZeRO-1 from
+its switch, its remat for an LM (each block under
+``torch.utils.checkpoint``), and for a pipeline plan its schedule, segment
+count and virtual stages (``--schedule``/``--segments`` given explicitly
+override them, as in the reference). A plan the port cannot run raises and
+names its ROADMAP queue 1 item (summa on a CNN or an SSM LM: item 8; ep:
+item 10); nothing falls back to another strategy. Without a world the
+trainer is the single-device one: it prints the p = 1 plan and deploys its
+switches.
+
 Like the JAX trainer it trains without ``use_pallas``: none of the four
 kernels has a backward, in the JAX package or here, so the convs, norms,
 attention and SSD of a training step are their plain versions.
-Checkpointing, ``--strategy auto`` and ``--elastic`` are not ported
-(ROADMAP queue 1 item 7).
+Checkpointing and ``--elastic`` are not ported (ROADMAP queue 1 items 7
+and 9).
 """
 from __future__ import annotations
 
@@ -63,18 +83,23 @@ import torch
 import torch.distributed as dist
 
 from ..configs import get_config
+from ..core.autotune import TunedPlan, autotune, stats_for_model
+from ..core.cluster import ClusterSpec, add_cluster_args
 from ..core.layer_stats import stats_for
+from ..core.oracle import TimeModel
 from ..data.pipeline import DataConfig, Loader
 from ..models.cnn import CosmoFlowConfig, ResNetConfig, VGGConfig
 from ..models.transformer import LMConfig
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
 from ..parallel.schedules import (SCHEDULE_NAMES, make_pipeline_train_step,
-                                  pipeline_block_costs)
+                                  pipeline_block_costs, pipeline_block_count,
+                                  pipeline_supported)
 from ..parallel.strategies import make_rules
+from ..parallel.summa import summa_supported
 from ..training.steps import make_train_step, train_state
 from .build import build_model, shard_batch
-from .mesh import init_from_env, make_host_mesh
+from .mesh import init_from_env, make_host_mesh, mesh_for_plan
 
 # the rule tables the CNNs run under, and the LMs (the others raise)
 CNN_STRATEGIES = ("data", "spatial", "filter", "channel", "df", "ds")
@@ -98,7 +123,8 @@ def data_config_for(mc, batch: int, seq: int = 128,
 
 def main(argv=None) -> dict:
     """Runs the loop; returns the per-step losses and step seconds (each step
-    timed from its launch until the device has finished it)."""
+    timed from its launch until the device has finished it), the strategy
+    run and, under ``--strategy auto``, the plan."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -113,13 +139,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'; there is no fallback")
     ap.add_argument("--strategy", default="df",
-                    choices=LM_STRATEGIES + ("pipeline",),
+                    choices=LM_STRATEGIES + ("pipeline", "auto"),
                     help="rules table, or 'pipeline', under torchrun (moot "
-                         "on one device)")
-    ap.add_argument("--schedule", default="gpipe", choices=SCHEDULE_NAMES,
-                    help="pipeline schedule")
-    ap.add_argument("--segments", type=int, default=8,
-                    help="requested microbatch count S of the pipeline")
+                         "on one device); 'auto' lets the oracle's "
+                         "auto-tuner pick strategy, mesh and switches")
+    ap.add_argument("--schedule", default="auto",
+                    choices=SCHEDULE_NAMES + ("auto",),
+                    help="pipeline schedule; 'auto' follows the tuned plan "
+                         "(--strategy auto) or gpipe otherwise")
+    ap.add_argument("--segments", type=int, default=None,
+                    help="requested microbatch count S of the pipeline "
+                         "(default: the tuned plan's, else 8)")
     ap.add_argument("--virtual-stages", type=int, default=2,
                     help="v of the interleaved schedule (chunks per rank)")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
@@ -128,67 +158,124 @@ def main(argv=None) -> dict:
                          "the default on the cpu)")
     ap.add_argument("--model-axis", type=int, default=None,
                     help="ranks on the mesh's model axis (the pipeline's "
-                         "stages; default: all ranks under pipeline)")
+                         "stages; default: all ranks under pipeline; the "
+                         "plan's p2 under auto)")
+    # the machine --strategy auto tunes for (default: this box)
+    add_cluster_args(ap, default_system="host")
     args = ap.parse_args(argv)
-    if args.strategy == "pipeline" and args.accum != 1:
-        raise SystemExit("--accum > 1 is not supported with --strategy "
-                         "pipeline (the pipeline microbatches are the "
-                         "accumulation schedule)")
 
     world = "WORLD_SIZE" in os.environ
     # a caller that has initialised the world (launch.spawn) keeps it
     own = world and not dist.is_initialized()
-    if world:
-        backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
-        if own:
-            init_from_env(backend)
-        model_axis = args.model_axis
-        if args.strategy == "pipeline" and model_axis is None:
-            model_axis = dist.get_world_size()
-        mesh = make_host_mesh(model=model_axis, backend=backend,
-                              device=args.device)
-        ctx = ShardingCtx(mesh.device, mesh=mesh,
-                          rules=make_rules(args.strategy))
-    else:
-        ctx = ShardingCtx(args.device)
+    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+    if own:
+        init_from_env(backend)
     try:
-        return _loop(args, ctx)
+        plan = None
+        if args.strategy == "auto":
+            plan = tune(args, dist.get_world_size() if world else 1)
+            if not world or dist.get_rank() == 0:
+                print(plan.describe(), flush=True)
+            cfg = get_config(args.arch)
+            deployable(plan, cfg.smoke_model if args.smoke else cfg.model)
+        strategy = plan.exec_strategy("train") if plan else args.strategy
+        if strategy == "pipeline" and args.accum != 1:
+            raise SystemExit("--accum > 1 is not supported with --strategy "
+                             "pipeline (the pipeline microbatches are the "
+                             "accumulation schedule)")
+        if world:
+            if plan is not None:
+                mesh = mesh_for_plan(plan, backend=backend,
+                                     device=args.device)
+            else:
+                model_axis = args.model_axis
+                if strategy == "pipeline" and model_axis is None:
+                    model_axis = dist.get_world_size()
+                mesh = make_host_mesh(model=model_axis, backend=backend,
+                                      device=args.device)
+            ctx = ShardingCtx(mesh.device, mesh=mesh,
+                              rules=make_rules(strategy))
+        else:
+            ctx = ShardingCtx(args.device)
+        return _loop(args, ctx, strategy, plan)
     finally:
         if own:
             dist.destroy_process_group()
 
 
-def _loop(args, ctx: ShardingCtx) -> dict:
+def tune(args, n: int) -> TunedPlan:
+    """The reference trainer's ``--strategy auto`` tuning on ``n``
+    processing elements: one epoch of exactly ``--batch`` samples, at
+    ``--seq`` for an LM, on the machine the cluster flags describe."""
+    cfg = get_config(args.arch)
+    mc = cfg.smoke_model if args.smoke else cfg.model
+    cluster = ClusterSpec.from_cli_args(args)
+    return autotune(stats_for_model(mc, args.seq), TimeModel(cluster.system),
+                    cluster.oracle_config(
+                        B=args.batch, D=args.batch,
+                        virtual_stages=max(args.virtual_stages, 1)), n,
+                    schedules=("all" if args.schedule == "auto"
+                               else (args.schedule,)),
+                    fallback=cfg.strategy, cluster=cluster,
+                    allow_remat=cfg.family != "cnn",
+                    allow_pipeline=pipeline_supported(mc) is None,
+                    max_stages=pipeline_block_count(mc))
+
+
+def deployable(plan: TunedPlan, mc) -> None:
+    """Raises, naming the ROADMAP queue 1 item, for a plan the port cannot
+    run on model config ``mc``; never picks another strategy."""
+    if plan.strategy == "summa" and summa_supported(mc) is not None:
+        raise NotImplementedError(f"the tuned plan {plan.describe()} cannot "
+                                  f"deploy: {summa_supported(mc)}")
+    if plan.strategy == "ep":
+        raise NotImplementedError(
+            f"the tuned plan {plan.describe()} cannot deploy: expert "
+            f"parallelism (ep_df) needs MoE, ROADMAP queue 1 item 10")
+
+
+def _loop(args, ctx: ShardingCtx, strategy: str,
+          plan: TunedPlan | None) -> dict:
     log = not ctx.sharded or ctx.mesh.rank == 0
     cfg = get_config(args.arch)
     mc = cfg.smoke_model if args.smoke else cfg.model
-    pipe = ctx.sharded and args.strategy == "pipeline"
-    if ctx.sharded and not pipe and args.strategy not in (
+    pipe = ctx.sharded and strategy == "pipeline"
+    # the plan's tables run on any model that reaches here (deployable);
+    # by hand the CNNs take the paper's six
+    if ctx.sharded and not pipe and plan is None and strategy not in (
             LM_STRATEGIES if isinstance(mc, LMConfig) else CNN_STRATEGIES):
-        raise SystemExit(f"--strategy {args.strategy}: the CNNs run under "
+        raise SystemExit(f"--strategy {strategy}: the CNNs run under "
                          f"{CNN_STRATEGIES}, the LMs under {LM_STRATEGIES}")
-    opt = OptimizerConfig(lr=args.lr, zero1="zero1" in args.strategy)
+    zero1 = plan.zero1 if plan is not None else "zero1" in strategy
+    opt = OptimizerConfig(lr=args.lr, zero1=zero1)
     if pipe:
         # every rank holds the whole model and updates the blocks it owns
         model = build_model(cfg, ShardingCtx(ctx.device), smoke=args.smoke,
                             seed=args.seed)
+        segments = args.segments or (plan.segments if plan else 8)
+        schedule, virtual = args.schedule, args.virtual_stages
+        if plan is not None:
+            schedule = plan.schedule if schedule == "auto" else schedule
+            virtual = plan.virtual_stages
+        elif schedule == "auto":
+            schedule = "gpipe"
         lm = {}
         if isinstance(mc, LMConfig):
             lm = dict(block_costs=pipeline_block_costs(
                 model, stats_for(mc, args.seq)), q_chunk=min(256, args.seq))
         step = make_pipeline_train_step(
-            model, opt, ctx, segments=args.segments,
-            schedule=args.schedule, virtual_stages=args.virtual_stages, **lm)
+            model, opt, ctx, segments=segments, schedule=schedule,
+            virtual_stages=virtual, **lm)
         if log:
-            print(f"pipeline schedule={args.schedule}"
-                  + (f" v={args.virtual_stages}"
-                     if args.schedule == "interleaved" else "")
-                  + f" segments<={args.segments} cuts={step.bounds}",
-                  flush=True)
+            print(f"pipeline schedule={schedule}"
+                  + (f" v={virtual}" if schedule == "interleaved" else "")
+                  + f" segments<={segments} cuts={step.bounds}", flush=True)
     else:
         model = build_model(cfg, ctx, smoke=args.smoke, seed=args.seed)
         fwd_kw = ({"q_chunk": min(256, args.seq)} if cfg.family == "lm"
                   else {})
+        if plan is not None and cfg.family == "lm":
+            fwd_kw["remat"] = plan.remat   # deploy the plan's remat switch
         step = make_train_step(model, opt, ctx, accum=args.accum, **fwd_kw)
     state = train_state(model, opt, ctx)
     loader = Loader(data_config_for(mc, args.batch, args.seq, args.seed),
@@ -197,7 +284,7 @@ def _loop(args, ctx: ShardingCtx) -> dict:
     losses, step_s = [], []
     t_start = time.perf_counter()
     if ctx.sharded and log:
-        print(f"mesh {ctx.mesh} strategy {args.strategy}", flush=True)
+        print(f"mesh {ctx.mesh} strategy {strategy}", flush=True)
     for s in range(args.steps):
         batch = loader.batch_at(s)
         if not pipe:
@@ -215,7 +302,9 @@ def _loop(args, ctx: ShardingCtx) -> dict:
     if losses and log:
         print(f"done at step {state['step']}; loss {losses[0]:.4f} → "
               f"{losses[-1]:.4f}")
-    out = {"losses": losses, "step_s": step_s, "device": str(ctx.device)}
+    out = {"losses": losses, "step_s": step_s, "device": str(ctx.device),
+           "strategy": strategy, "plan": plan,
+           "mesh": dict(ctx.mesh.shape) if ctx.sharded else None}
     if ctx.device.type == "cuda":
         out["peak_bytes"] = _peaks(ctx)
         if log:

@@ -15,7 +15,8 @@ come with the slices that port them. With tied
 embeddings the head is the embedding table, as in the reference.
 
 Entry points, as in the reference: ``forward`` (its ``apply``) → (logits,
-aux), ``loss_fn`` → (masked next-token cross-entropy + aux, metrics),
+aux), ``loss_fn`` → (masked next-token cross-entropy + aux, metrics), both
+with the reference's per-block ``remat`` switch (off by default here),
 ``prefill`` → (last-position logits, cache) and ``decode_step`` →
 (logits, cache), logits in fp32. A cache is ``{"blocks": [...]}`` with one
 entry per layer ({"k", "v"} for attention, {"state", "conv_x", "conv_B",
@@ -50,6 +51,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.attention import Attention, AttentionConfig
 from ..nn.ffn import FFN, FFNConfig
@@ -208,25 +210,35 @@ class TransformerLM(nn.Module):
         return ctx.constrain(logits, ("batch", "seq", "vocab"))
 
     def forward(self, tokens, ctx: ShardingCtx, q_chunk: int = 1024,
-                kv_chunk: int = 1024):
-        """Full forward → (logits (B, S, vocab), aux loss)."""
+                kv_chunk: int = 1024, remat: bool = False):
+        """Full forward → (logits (B, S, vocab), aux loss). ``remat``: each
+        block runs under a non-reentrant ``torch.utils.checkpoint`` (the
+        reference's ``jax.checkpoint`` of each block): its activations are
+        recomputed in the backward instead of saved. Off by default, unlike
+        the reference's ``_forward``. The recomputation runs the block's
+        collectives again, which ``collectives.STATS`` counts twice."""
         h = self._embed(tokens, ctx)
         for block in self.blocks:
-            h = block(h, ctx, q_chunk, kv_chunk)
+            if remat:
+                h = checkpoint(block, h, ctx, q_chunk, kv_chunk,
+                               use_reentrant=False)
+            else:
+                h = block(h, ctx, q_chunk, kv_chunk)
         dev = h.local.device if isinstance(h, Sharded) else h.device
         return self._logits(h, ctx), torch.zeros((), device=dev)
 
     def loss_fn(self, batch: dict, ctx: ShardingCtx, q_chunk: int = 1024,
-                kv_chunk: int = 1024):
+                kv_chunk: int = 1024, remat: bool = False):
         """Masked next-token cross-entropy in fp32, the reference's. batch:
         ``tokens`` (B, S) int; optional ``targets`` (B, S) (default: the
         tokens shifted left, 0 at the end) and ``mask`` (B, S) (default:
-        ones). Returns (loss + aux, {"ce", "aux"})."""
+        ones); ``remat`` as in ``forward``. Returns (loss + aux, {"ce",
+        "aux"})."""
         tokens = batch["tokens"]
         targets = batch.get("targets")
         if targets is None:
             targets = _shift(tokens)
-        logits, aux = self(tokens, ctx, q_chunk, kv_chunk)
+        logits, aux = self(tokens, ctx, q_chunk, kv_chunk, remat)
         mask = batch.get("mask")
         if isinstance(logits, Sharded):
             loss = _sharded_loss(logits, targets, mask)

@@ -37,7 +37,10 @@ memory that way, with no ranks). The groups come from ``launch.mesh.Mesh.group``
 transfer is a ``record_function`` span named ``comm.<collective>``, which
 ``launch.profile_train --strategies`` sums, and adds one to ``STATS["calls"]``
 and its host seconds to ``STATS["seconds"]`` (the serving phase of
-``chip_smoke.py`` reads both per engine cell).
+``chip_smoke.py`` reads both per engine cell). Under an LM's remat
+(``TransformerLM.forward(remat=True)``) the backward recomputes each
+block's forward, collectives included: both counts and the spans then
+hold those collectives twice.
 """
 from __future__ import annotations
 

@@ -150,6 +150,11 @@ def make_pipeline_train_step(model, opt: OptimizerConfig, ctx,
     if schedule not in SCHEDULE_NAMES:
         raise ValueError(f"unknown schedule {schedule!r}; "
                          f"pick one of {SCHEDULE_NAMES}")
+    if fwd_kw.pop("remat", False):
+        raise NotImplementedError(
+            "the pipeline step deploys no memory switch (remat=True): the "
+            "auto-tuner never plans one for it "
+            "(core.autotune.deployable_switch_mask)")
     reason = pipeline_supported(model)
     if reason is not None:
         raise NotImplementedError(f"pipeline cannot deploy: {reason}")

@@ -31,7 +31,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-from ..core.layer_stats import stats_for
+from ..core.autotune import stats_for_model
 from ..core.oracle import seq_flops_coeffs
 
 __all__ = ["SERVE_STRATEGIES", "ServeProjection", "ServePlan",
@@ -274,6 +274,4 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _weight_bytes(mc, seq: int, dtype_bytes: int) -> float:
-    # the reference reads core.autotune.stats_for_model (ROADMAP queue 1
-    # item 7, not ported), which for an LM config is stats_for(mc, seq)
-    return float(sum(st.w for st in stats_for(mc, seq))) * dtype_bytes
+    return float(sum(st.w for st in stats_for_model(mc, seq))) * dtype_bytes
