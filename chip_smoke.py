@@ -205,18 +205,51 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              spawn's 4 ranks: ResNet-50 (full depth, batch 32, as [parallel]
              trains it) under --strategy auto, the plan at p = 4, the mesh
              it deployed, the losses (finite), ms/step and every rank's peak.
+  11. serve-auto  the data axis in serving, in the [parallel] spawn next
+             to serve-sharded, on its cut (Qwen1.5-4B fp32, SHARDED_LAYERS
+             of 40 layers), trace and single-process tokens:
+             launch.serve.main --strategy auto with the [oracle] cluster's
+             JSON (the plan and the mesh deployed printed; every rank's
+             tokens equal), then serve_tp and serve_seqkv (kv_shards 2) on
+             the spawn's (2, 2) mesh, each decode batch's rows split over
+             "data": every request's tokens on every rank equal to the
+             single-process engine's, 2·L + 1 rmsnorm launches a cell call
+             on every rank; tok/s, TTFT and latency p50/p99, collectives
+             and host ms in comm.* a cell, every rank's peak, beside
+             price_serving(p1=2, p2=2).
+  12. api   the session (repro_torch.api.Oracle) on one card. The [oracle]
+             phase's ResNet-50 calibration goes through Oracle.calibrate;
+             its ClusterSpec JSON reads back equal and the session's
+             projection equals the direct call's. Oracle("resnet50",
+             "train_4k", cluster).build(None): the built cell's plan and 2
+             steps at the shape's global batch (256 at 224²; ms/step, the
+             peak); .validate(ctx, ("data",), use_cluster=True): one Fig. 3
+             row at p = 1 (the smoke model); the Qwen1.5-4B and Mamba-2
+             780m serving cells at prefill_32k and decode_32k built on
+             meta: their strategy and argument shapes (not run).
+  13. ckpt  checkpointing through launch.train.main --ckpt-dir: ResNet-50
+             at batch 32, 4 steps straight against 2 steps and a fresh run
+             resumed to step 4 (cuDNN in its deterministic mode for the
+             phase), then Qwen1.5-4B cut to CKPT_LM_LAYERS layers in bf16
+             the same way: the resumed steps' losses equal the straight
+             run's bit for bit; every save's host-copy and write ms and its
+             bytes on disk (async and blocking); a torn step directory
+             (no .complete) is skipped.
 Then a JSON line for the kernels, the nvidia-smi line, and the result line.
 It imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import statistics
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -233,7 +266,6 @@ from repro_torch.configs.cnn_archs import ORACLE_BATCH  # noqa: E402
 from repro_torch.configs.lm_archs import (LM_PARALLEL_SHAPE,  # noqa: E402
                                           LM_PIPELINE_SHAPE, LM_TRAIN_SHAPE,
                                           lm_parallel_arch)
-from repro_torch.core.calibration import calibrate_host_system  # noqa: E402
 from repro_torch.core.cluster import ClusterSpec  # noqa: E402
 from repro_torch.core.hardware import cuda_device_model  # noqa: E402
 from repro_torch.core.layer_stats import stats_for  # noqa: E402
@@ -610,6 +642,18 @@ REMAT_RUNS = (("mamba2-780m", 4, 1024), ("qwen1.5-4b", 2, 512))
 # --strategy auto on the [parallel] spawn's ranks: ResNet-50 as [parallel]
 # trains it (full depth, global batch 32)
 AUTO_PAR = ("resnet50", BATCH)
+# serve-auto: the layouts on the spawn's (2, 2) mesh, (layout, kv_shards)
+SERVE_AUTO_LAYOUTS = (("serve_tp", 1), ("serve_seqkv", PAR_MODEL))
+# the api phase's serving cells, built on meta and not run
+API_SERVE_CELLS = tuple((arch, shape) for arch in ("qwen1.5-4b",
+                                                   "mamba2-780m")
+                        for shape in ("prefill_32k", "decode_32k"))
+# each shape's cell kind
+SHAPES_KIND = {"prefill_32k": "prefill", "decode_32k": "decode"}
+# ckpt: ResNet-50 at BATCH, and the Qwen1.5-4B cut to this many layers in
+# bf16 at LM_TRAIN_SHAPE (its checkpoint ~9.4 GB: the embedding and the
+# head, and AdamW's two fp32 moments)
+CKPT_LM_LAYERS = 2
 
 
 def fail(msg: str):
@@ -1402,16 +1446,18 @@ def phase_oracle(dev):
     turn (each freed before the next), fp32 with TF32 off, the measured
     train step (SGD) against the oracle's projection, in two blocks:
     self-calibrated (calibrated on the model it projects, the reference's
-    default) and calibrated on ResNet-50 (``calibrate_host_system`` on
-    ResNet-50 → a ClusterSpec on ``cuda_device_model``, then
+    default) and calibrated on ResNet-50 (the session's
+    ``Oracle.calibrate`` on ResNet-50 → a ClusterSpec on
+    ``cuda_device_model``, ``_session_calibration``, then
     ``validate(..., cluster=)`` for the other models). ResNet-50 is
     calibrated once: its self-calibrated point is ``validate`` with its own
     cluster, which at p = 1 is ``validate`` without one. Then, per model,
     the oracle's projected memory (fp32 values, δ = 4 bytes, SGD's one
     momentum: 4 bytes a parameter) beside the peak of the measured step of
-    ``validate(..., cluster=)``. Reports only; no accuracy is gated. Returns
-    the cluster calibrated on ResNet-50 (its system holds the card's HBM
-    rate as measured for the calibration)."""
+    ``validate(..., cluster=)``. Reports only; no accuracy is gated.
+    Returns the session whose calibration (``Oracle.calibrate``) fitted
+    the cluster on ResNet-50 (its system holds the card's HBM rate as
+    measured for the calibration)."""
     ctx = ShardingCtx(dev)
     self_rows, cross_rows, cluster = [], [], None
     for arch, batch_size in ORACLE_RUNS:
@@ -1424,11 +1470,11 @@ def phase_oracle(dev):
         stats = stats_for(mc)
         fps = float(sum(st.flops_fwd for st in stats))
         if cluster is None:
-            sysm = calibrate_host_system(lambda b: model.loss_fn(b, ctx),
-                                         model.parameters(), batch,
-                                         fps * batch_size)
-            cluster = ClusterSpec.from_system(sysm)
-            print(f"[oracle] calibrated on {arch} batch={batch_size}: "
+            ses = _session_calibration(cfg, batch_size, dev)
+            cluster = ses.cluster
+            sysm = cluster.system
+            print(f"[oracle] calibrated on {arch} batch={batch_size} "
+                  f"(Oracle.calibrate on one card): "
                   f"{sysm.name} peak_flops={sysm.peak_flops:.6g} "
                   f"hbm_bw={sysm.hbm_bw:.6g} "
                   f"mem_capacity={sysm.mem_capacity:.6g}", flush=True)
@@ -1464,7 +1510,7 @@ def phase_oracle(dev):
     print(f"[oracle] mean accuracy: self-calibrated={mean_self * 100:.4g}% "
           f"calibrated-on-resnet50={mean_cross * 100:.4g}% "
           f"(paper: 86.74% on 1024 V100s)", flush=True)
-    return cluster
+    return ses
 
 
 def _halo_launches(sites, m: int) -> int:
@@ -1560,6 +1606,7 @@ def _parallel_rank(mesh, hbm_bw: float, cluster_json: str):
     out["lm_pipe"] = _lm_pipeline_rank(mesh)
     out["summa"] = _summa_rank(mesh)
     out["serve_sharded"] = _serve_sharded_rank(mesh)
+    out["serve_auto"] = _serve_auto_rank(mesh, cluster_json)
     out["auto"] = _auto_rank(mesh, cluster_json)
     if mesh.rank == 0:
         return out
@@ -1570,7 +1617,8 @@ def _parallel_rank(mesh, hbm_bw: float, cluster_json: str):
             "lm_pipe": {"peaks": out["lm_pipe"]["peaks"]},
             "summa": {"peaks": out["summa"]["peaks"],
                       "calls": out["summa"]["calls"]},
-            "serve_sharded": out["serve_sharded"]}
+            "serve_sharded": out["serve_sharded"],
+            "serve_auto": out["serve_auto"]}
 
 
 def _auto_rank(mesh, cluster_json: str) -> dict:
@@ -2275,6 +2323,181 @@ def _report_serve_sharded(results, refs, seconds, cluster, hbm_bw):
     return launched
 
 
+def _serve_auto_rank(mesh22, cluster_json: str) -> dict:
+    """One rank of the serve-auto phase: launch.serve.main --strategy auto
+    on the spawn's world (its launches, what it returned and printed), then
+    each of SERVE_AUTO_LAYOUTS on the spawn's (2, 2) mesh through
+    measure_serving, as _serve_sharded_rank records the (1, 4) ones."""
+    from repro_torch.launch import serve
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.strategies import make_rules
+    from repro_torch.serve import ServeConfig
+    t_phase = time.perf_counter()
+    dev = mesh22.device
+    cfg = lm_parallel_arch(SHARDED_ARCH, SHARDED_LAYERS)
+    traffic, trace, max_len = _sharded_cell(cfg.model.vocab)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    text = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        cli = serve.main([
+            "--arch", SHARDED_ARCH, "--device", "cuda", "--backend", "gloo",
+            "--strategy", "auto", "--cluster", cluster_json, "--closed-loop",
+            "--requests", str(SHARDED_REQUESTS),
+            "--prompt-len", str(traffic.prompt_len),
+            "--gen", str(traffic.gen_len), "--rate", str(traffic.rate),
+            "--max-batch", str(SHARDED_CFG["max_batch"]),
+            "--block-tokens", str(SHARDED_CFG["block_tokens"]),
+            "--prefill-chunk", str(SHARDED_CFG["prefill_chunk"])], cfg=cfg)
+    out = {"cli": dict(cli, launches=_counts(),
+                       seconds=time.perf_counter() - t0,
+                       printed=text.getvalue() if mesh22.rank == 0 else "",
+                       peak=torch.cuda.max_memory_allocated(dev)),
+           "layouts": {}, "peaks": {}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, ShardingCtx(dev, use_pallas=True, mesh=mesh22,
+                                         rules=make_rules("serve_tp")),
+                        seed=0)
+    for s, shards in SERVE_AUTO_LAYOUTS:
+        ctx = ShardingCtx(dev, use_pallas=True, mesh=mesh22,
+                          rules=make_rules(s))
+        scfg = ServeConfig(max_len=max_len, kv_shards=shards,
+                           dtype=torch.float32, **SHARDED_CFG)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        per_call, decode_step = [], model.decode_step
+
+        def counted(tokens, *args):
+            before = _counts()
+            c0, s0 = coll.STATS["calls"], coll.STATS["seconds"]
+            y = decode_step(tokens, *args)
+            per_call.append((tokens.shape[1],) + tuple(
+                a - b for a, b in zip(_counts(), before)) + (
+                coll.STATS["calls"] - c0, coll.STATS["seconds"] - s0))
+            return y
+
+        model.decode_step = counted
+        c0, s0 = coll.STATS["calls"], coll.STATS["seconds"]
+        t0 = time.perf_counter()
+        # one replay: the CLI's replay warmed these processes
+        report = measure_serving(model, ctx, s, scfg, trace, warmup=False)
+        seconds = time.perf_counter() - t0
+        del model.decode_step
+        out["layouts"][s] = {
+            "tokens": [r.tokens for r in report.requests],
+            "summary": report.summary(), "per_call": per_call,
+            "seconds": seconds,
+            "comm": (coll.STATS["calls"] - c0, coll.STATS["seconds"] - s0)}
+        out["peaks"][s] = torch.cuda.max_memory_allocated(dev)
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _report_serve_auto(results, refs, seconds, cluster, hbm_bw) -> int:
+    """Prints and gates the serve-auto phase (11 of the docstring); returns
+    the rmsnorm launches of every rank's runs."""
+    mc = lm_parallel_arch(SHARDED_ARCH, SHARDED_LAYERS).model
+    want = (2 * mc.n_layers + 1, 0, 0)
+    traffic, trace, max_len = _sharded_cell(mc.vocab)
+    clis = [r["serve_auto"]["cli"] for r in results]
+    c0 = clis[0]
+    plan_line = c0["printed"].splitlines()[0] if c0["printed"] else ""
+    print(f"[serve-auto] launch.serve.main --strategy auto --cluster "
+          f"<[oracle]'s JSON> on the {PAR_RANKS} spawned ranks ({SHARDED_ARCH} "
+          f"{mc.n_layers} layers fp32, cache bf16, the serve-sharded trace, "
+          f"max_batch {SHARDED_CFG['max_batch']}): {plan_line} -> deployed "
+          f"{c0['strategy']} on mesh {c0['mesh']}; tok_per_s="
+          f"{c0['tok_per_s']:.6g} ttft_p50_ms={c0['ttft_p50_s'] * 1e3:.6g} "
+          f"latency_p99_ms={c0['latency_p99_s'] * 1e3:.6g} (one replay, no "
+          f"warm-up) launches (rmsnorm, flash_attention, ssd_chunk) per "
+          f"rank={[c['launches'] for c in clis]} run_s="
+          f"{max(c['seconds'] for c in clis):.4g} peak_GiB_per_rank="
+          + ",".join(f"{c['peak'] / 2 ** 30:.4g}" for c in clis), flush=True)
+    if not plan_line.startswith("TunedPlan[p=4]"):
+        fail(f"[serve-auto] the CLI printed no plan first: {plan_line!r}")
+    if any((c["strategy"], c["mesh"]) != (c0["strategy"], c0["mesh"])
+           for c in clis) or math.prod(c0["mesh"].values()) != PAR_RANKS:
+        fail(f"[serve-auto] the ranks deployed "
+             f"{[(c['strategy'], c['mesh']) for c in clis]}")
+    if any(c["tokens_by_request"] != c0["tokens_by_request"] for c in clis) \
+            or len(c0["tokens_by_request"]) != SHARDED_REQUESTS:
+        fail("[serve-auto] the CLI's tokens differ between ranks")
+    if any(c["launches"][0] == 0 or c["launches"][1:] != (0, 0)
+           for c in clis):
+        fail(f"[serve-auto] the CLI's launches "
+             f"{[c['launches'] for c in clis]}")
+    launched = sum(c["launches"][0] for c in clis)
+    system = cluster if cluster is not None else cuda_device_model(
+        torch.device("cuda", 0), hbm_bw=hbm_bw,
+        flops=PEAK_FLOPS[torch.float32])
+    for s, shards in SERVE_AUTO_LAYOUTS:
+        got = [r["serve_auto"]["layouts"][s] for r in results]
+        r0 = got[0]
+        same = [g["tokens"] == refs["tokens"] for g in got]
+        calls = [g["per_call"] for g in got]
+        launches = sorted({c[1:4] for rank in calls for c in rank})
+        colls = {c[0]: c[4] for c in calls[0]}
+        n_cells = len(calls[0])
+        comm_calls, comm_s = r0["comm"]
+        summ = r0["summary"]
+        peaks = [r["serve_auto"]["peaks"][s] / 2 ** 30 for r in results]
+        launched += sum(c[1] for rank in calls for c in rank)
+        print(f"[serve-auto] {s} kv_shards={shards} on (data=2, model=2), "
+              f"the decode batch's rows split over data: tokens equal to the "
+              f"single-process engine's on every rank={same} cell_calls="
+              f"{n_cells} launches (rmsnorm, flash_attention, ssd_chunk) per "
+              f"cell call on every rank={launches} (want {want})", flush=True)
+        print(f"[serve-auto] {s} collectives per decode_step call by chunk "
+              f"length {colls}; per cell (greedy and clock included, rank 0) "
+              f"{comm_calls / n_cells:.5g}; host_ms_in_comm per cell "
+              f"{comm_s / n_cells * 1e3:.5g} (rank 0, the replay: "
+              f"{comm_calls} collectives, {comm_s:.5g} s of "
+              f"{r0['seconds']:.5g} s)", flush=True)
+        print(f"[serve-auto] {s} measured (closed loop, one replay after the "
+              f"CLI's, rank 0): "
+              f"tok_per_s={summ['tok_per_s']:.6g} wall_s={summ['wall_s']:.6g} "
+              f"ttft_p50_ms={summ['ttft_p50_s'] * 1e3:.6g} "
+              f"ttft_p99_ms={summ['ttft_p99_s'] * 1e3:.6g} "
+              f"latency_p50_ms={summ['latency_p50_s'] * 1e3:.6g} "
+              f"latency_p99_ms={summ['latency_p99_s'] * 1e3:.6g} "
+              f"peak_GiB_per_rank={','.join(f'{v:.4g}' for v in peaks)}",
+              flush=True)
+        proj = price_serving(mc, system, s, 2, PAR_MODEL, shards,
+                             SHARDED_CFG["max_batch"], traffic,
+                             max_len=max_len, dtype_bytes=4,
+                             prefill_chunk=SHARDED_CFG["prefill_chunk"])
+        on = "the cluster [parallel] calibrated" if cluster else system.name
+        print(f"[serve-auto] {s} projected (price_serving p1=2 p2={PAR_MODEL} "
+              f"kv_shards={shards} on {on}: p1 independent replicas at "
+              f"rate/p1, where the engine splits one batch): "
+              f"tok_per_s={proj.tok_per_s:.6g} "
+              f"t_prefill_ms={proj.t_prefill * 1e3:.6g} "
+              f"t_decode_ms={proj.t_decode * 1e3:.6g} rho={proj.rho:.4g} "
+              f"ttft_p99_ms={proj.ttft_p99 * 1e3:.6g} "
+              f"latency_p99_ms={proj.latency_p99 * 1e3:.6g} "
+              f"feasible={proj.feasible} {proj.limit} (reported, gated on "
+              f"finiteness)", flush=True)
+        if not all(same):
+            bad = [i for i, ok in enumerate(same) if not ok]
+            fail(f"[serve-auto] {s}: tokens differ from the single-process "
+                 f"engine's on ranks {bad}")
+        if launches != [want] or not n_cells:
+            fail(f"[serve-auto] {s}: launches a cell call {launches}, not "
+                 f"{want}")
+        if not all(math.isfinite(v) for v in (proj.tok_per_s, proj.t_prefill,
+                                              proj.t_decode)):
+            fail(f"[serve-auto] {s}: projection not finite: {proj}")
+    print(f"[serve-auto] phase wall time {seconds:.4g} s (the spawn's "
+          f"serve-auto part); rmsnorm launches over every rank's runs "
+          f"{launched}", flush=True)
+    return launched
+
+
 def _two_sgd_steps(cfg, ctx, batch, accum: int = 1, **fwd_kw) -> tuple:
     """Two SGD steps of a model from seed 0 (``accum`` microbatches a
     step): (first loss, the first step's gradient norm before clipping,
@@ -2335,16 +2558,19 @@ def phase_parallel(dev, hbm_bw: float, cluster_json: str) -> int:
     t_lm_pipe_ref = time.perf_counter() - t0
     refs["serve"] = _serve_sharded_refs(dev)
     from repro_torch.launch.spawn import run_ranks
+    t_spawn = time.perf_counter()
     results = run_ranks(_parallel_rank, PAR_RANKS, hbm_bw, cluster_json,
                         backend="gloo", device="cuda", model=PAR_MODEL,
                         timeout_s=900)
+    t_spawn = time.perf_counter() - t_spawn
     r0 = results[0]
     note = (f"{PAR_RANKS} ranks timesharing one card over gloo (host-staged "
             f"collectives): the counterpart of the reference's virtual host "
             f"devices, not a {PAR_RANKS}-GPU machine")
     print(f"[parallel] mesh (data={PAR_RANKS // PAR_MODEL}, "
           f"model={PAR_MODEL}); {note}; single-process references "
-          f"{t_ref:.3g} s", flush=True)
+          f"{t_ref:.3g} s; the spawn's wall time {t_spawn:.4g} s (bound "
+          f"900 s)", flush=True)
     total = 0
     for arch, sites in PAR_EVAL_SITES.items():
         want = _halo_launches(sites, PAR_MODEL)
@@ -2423,17 +2649,20 @@ def phase_parallel(dev, hbm_bw: float, cluster_json: str) -> int:
     t_lm_pipe = t_lm_pipe_ref + r0["lm_pipe"]["seconds"]
     t_summa = r0["summa"]["seconds"]
     t_serve = refs["serve"]["seconds"] + r0["serve_sharded"]["seconds"]
+    t_serve_auto = r0["serve_auto"]["seconds"]
     own = time.perf_counter() - t_phase - t_pipe - t_lm - t_lm_pipe \
-        - t_summa - t_serve - r0["auto"]["seconds"]
+        - t_summa - t_serve - t_serve_auto - r0["auto"]["seconds"]
     print(f"[parallel] phase wall time {own:.4g} s (the pipeline, "
-          f"lm-parallel, lm-pipeline, summa, serve-sharded and auto "
-          f"phases' parts excluded)", flush=True)
+          f"lm-parallel, lm-pipeline, summa, serve-sharded, serve-auto and "
+          f"auto phases' parts excluded)", flush=True)
     _report_pipeline(results, refs["pipe"], rows, note, t_pipe, cluster)
     _report_lm_parallel(results, refs["lm"], t_lm)
     _report_lm_pipeline(results, refs["lm_pipe"], t_lm_pipe)
     _report_summa(results, refs["lm"], t_summa)
     rms = _report_serve_sharded(results, refs["serve"], t_serve, cluster,
                                 hbm_bw)
+    rms += _report_serve_auto(results, refs["serve"], t_serve_auto, cluster,
+                              hbm_bw)
     _report_auto_ranks(results)
     return total, rms
 
@@ -2710,6 +2939,174 @@ def phase_auto(dev, cluster, cluster_json: str):
           f"(the 4-rank run's part is in the [parallel] spawn)", flush=True)
 
 
+def _session_calibration(cfg, batch_size: int, dev):
+    """The [oracle] phase's calibration through the session:
+    ``Oracle.calibrate`` on one card, the arch's full model measured (the
+    session measures its config's smoke model: here the full one) at
+    ``batch_size`` on cuda_device_model with the card's measured HBM rate,
+    as ``calibrate_host_system`` calibrates it; returns the session, bound
+    to the fitted cluster."""
+    from repro_torch.api import Oracle
+    from repro_torch.core.calibration import measure_hbm_bw
+    base = ClusterSpec.from_system(cuda_device_model(
+        dev, hbm_bw=measure_hbm_bw(dev), flops=0.0))
+    ses = Oracle(dataclasses.replace(cfg, smoke_model=cfg.model),
+                 "train_4k", base, batch=batch_size)
+    ses.calibrate(None, batch_size=batch_size, device=dev)
+    return ses
+
+
+def phase_api(dev, ses, cluster_json: str):
+    """The session on one card (12 of the docstring)."""
+    from repro_torch.api import Oracle
+    from repro_torch.launch.build import shard_batch
+    t_phase = time.perf_counter()
+    cluster = ses.cluster
+    again = ClusterSpec.from_json(cluster_json)
+    via = ses.project("data", 1)
+    direct = project("data", ses.stats, TimeModel(cluster.system),
+                     cluster.oracle_config(B=ses.B, D=ses.D), 1)
+    print(f"[api] Oracle.calibrate ([oracle]'s ResNet-50 calibration): "
+          f"peak_flops={cluster.peak_flops:.6g} hbm_bw={cluster.hbm_bw:.6g} "
+          f"JSON read back equal={again == cluster}; session project(data, "
+          f"p=1)={via.total_s!r} s, the direct call's={direct.total_s!r} s",
+          flush=True)
+    if again != cluster or via.total_s != direct.total_s:
+        fail(f"[api] the session's cluster or projection differs from the "
+             f"JSON's or the direct call's: {again} / {cluster}, "
+             f"{via.total_s} / {direct.total_s}")
+    train_ses = Oracle("resnet50", "train_4k", cluster)
+    torch.cuda.empty_cache()
+    cell = train_ses.build(None, device=dev)
+    plan = cell.meta["plan"]
+    images = tuple(cell.args[1]["images"].shape)
+    batch_size = train_ses.B
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = train_state(cell.model, cell.meta["opt"], cell.ctx)
+    loader = Loader(train.data_config_for(get_config("resnet50").model,
+                                          batch_size, seed=0), dev)
+    losses, ms = [], []
+    try:
+        for i in range(2):
+            batch = shard_batch(loader.batch_at(i), cell.ctx)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = cell.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"[api] the built train cell runs out of memory at the shape's "
+             f"global batch {batch_size}: {e}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[api] Oracle(resnet50, train_4k, cluster).build(None): "
+          f"{plan.describe()} strategy={cell.strategy} kind={cell.kind} "
+          f"zero1={cell.meta['opt'].zero1} args images={images}; 2 steps "
+          f"at batch {batch_size} (the shape's global batch), 224²: losses="
+          f"{','.join(f'{v:.6g}' for v in losses)} step_ms="
+          f"{','.join(f'{v:.6g}' for v in ms)} "
+          f"samples_per_s={batch_size / ms[-1] * 1e3:.6g} "
+          f"projected_ms_per_step={plan.per_iter_s * 1e3:.6g} "
+          f"(at {train_ses.B}) max_memory_allocated={peak} "
+          f"projected_mem_bytes={plan.mem_bytes:.6g}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or cell.kind != "train":
+        fail(f"[api] built cell {cell.kind}: losses {losses}")
+    del cell, state, loader
+    torch.cuda.empty_cache()
+    (pt,) = train_ses.validate(ShardingCtx(dev), ("data",), use_cluster=True)
+    print(f"[api] .validate(ctx, ('data',), use_cluster=True), the smoke "
+          f"ResNet-50 at batch 8: measured_ms={pt.measured_s * 1e3:.6g} "
+          f"projected_ms={pt.projected_s * 1e3:.6g} "
+          f"accuracy={pt.accuracy * 100:.4g}%", flush=True)
+    if not all(math.isfinite(t) and t > 0 for t in (pt.measured_s,
+                                                    pt.projected_s)):
+        fail(f"[api] validate: {pt}")
+    for arch, shape in API_SERVE_CELLS:
+        c = Oracle(arch, shape, cluster).build(None, device="meta",
+                                               use_pallas=True)
+        cache = c.args[2]["blocks"]
+        first = {k: tuple(v.shape) for k, v in cache[0].items()}
+        inputs = (tuple(c.args[1]["tokens"].shape) if c.kind == "prefill"
+                  else tuple(c.args[1].shape))
+        print(f"[api] {arch} {shape} cell on meta (not run): "
+              f"{c.meta['plan'].describe()} strategy={c.strategy} "
+              f"kind={c.kind} remat={c.meta['remat']} use_pallas="
+              f"{c.ctx.use_pallas} params={len(c.args[0])} tensors, "
+              f"tokens={inputs} cache {len(cache)} layers, layer 0 {first}",
+              flush=True)
+        if c.kind != SHAPES_KIND[shape] or c.strategy != "serve_tp" \
+                or c.meta["remat"]:
+            fail(f"[api] {arch} {shape}: {c.kind} {c.strategy}")
+    print(f"[api] phase wall time {time.perf_counter() - t_phase:.4g} s",
+          flush=True)
+
+
+def phase_ckpt(dev):
+    """Checkpointing through the trainer (13 of the docstring)."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, root, True)
+    print(f"[ckpt] writing under the temporary directory: "
+          f"{shutil.disk_usage(root).free / 1e9:.4g} GB free", flush=True)
+    qwen = get_config("qwen1.5-4b")
+    b, seq = LM_TRAIN_SHAPE["qwen1.5-4b"]
+    runs = (("resnet50", None, ["--batch", str(BATCH), "--ckpt-every", "1"]),
+            ("qwen1.5-4b", dataclasses.replace(qwen, model=dataclasses.replace(
+                qwen.model, n_layers=CKPT_LM_LAYERS)),
+             ["--batch", str(b), "--seq", str(seq), "--ckpt-every", "100"]))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch, cfg, extra in runs:
+            t0 = time.perf_counter()
+            argv = ["--arch", arch, "--device", "cuda", "--log-every", "100"] \
+                + extra
+            where = os.path.join(root, arch)
+            torch.cuda.reset_peak_memory_stats(dev)
+            straight = train.main(argv + ["--steps", "4"], cfg=cfg)["losses"]
+            first = train.main(argv + ["--steps", "2", "--ckpt-dir", where],
+                               cfg=cfg)
+            # a step cut before its commit: the resume must skip it
+            torn = Path(where) / arch / "step_00000003"
+            torn.mkdir()
+            (torn / "manifest.json").write_text("{}")
+            rest = train.main(argv + ["--steps", "4", "--ckpt-dir", where],
+                              cfg=cfg)
+            peak = torch.cuda.max_memory_allocated(dev)
+            saves = first["ckpt_saves"] + rest["ckpt_saves"]
+            print(f"[ckpt] {arch}"
+                  + (f" cut to {CKPT_LM_LAYERS} layers, bf16, batch {b} x "
+                     f"{seq}" if cfg else f" batch {BATCH}")
+                  + f": straight losses="
+                  f"{','.join(repr(v) for v in straight)}; resumed from step "
+                  f"{rest['start_step']} (the torn step 3 skipped) losses="
+                  f"{','.join(repr(v) for v in first['losses'] + rest['losses'])}"
+                  f"; equal bit for bit="
+                  f"{first['losses'] + rest['losses'] == straight}",
+                  flush=True)
+            for sv in saves:
+                print(f"[ckpt] {arch} save step={sv['step']} "
+                      f"{'blocking' if sv['blocking'] else 'async'}: "
+                      f"host_copy_ms={sv['copy_s'] * 1e3:.6g} (the train loop "
+                      f"waits this long) write_ms={sv['write_s'] * 1e3:.6g} "
+                      f"bytes_on_disk={sv['bytes']}", flush=True)
+            if rest["start_step"] != 2 or \
+                    first["losses"] + rest["losses"] != straight:
+                fail(f"[ckpt] {arch}: resumed at {rest['start_step']}, "
+                     f"losses {first['losses']} + {rest['losses']} against "
+                     f"the straight run's {straight}")
+            shutil.rmtree(where)
+            print(f"[ckpt] {arch} run_s={time.perf_counter() - t0:.4g} "
+                  f"max_memory_allocated={peak}", flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+    print(f"[ckpt] phase wall time {time.perf_counter() - t_phase:.4g} s",
+          flush=True)
+
+
 class _FirstLogits(Engine):
     """The engine, keeping the logits (vocab,) at the first generated
     token of the requests in ``keep``."""
@@ -2840,7 +3237,8 @@ def main():
     conv["launches"] = sum(phase_eval(arch) for arch in EVAL_SITES)
     for arch, batch in TRAIN_RUNS:
         phase_train(arch, batch)
-    cluster = phase_oracle(dev)
+    ses = phase_oracle(dev)
+    cluster = ses.cluster
     hbm_bw = cluster.system.hbm_bw
     cluster_json = _write_cluster(cluster)
     par_conv, par_rms = phase_parallel(dev, hbm_bw, cluster_json)
@@ -2850,6 +3248,8 @@ def main():
     phase_fp32_serve(dev, "mamba2-780m")
     phase_lm_train(dev)
     phase_auto(dev, cluster, cluster_json)
+    phase_api(dev, ses, cluster_json)
+    phase_ckpt(dev)
     # rmsnorm runs on both LM serving paths and the engine, on one card and
     # across ranks: its launches are the four runs' sum
     rms["launches"] = qwen[0] + mamba[0] + phase_engine(dev, hbm_bw) \

@@ -6,10 +6,10 @@ lattice; this module turns that into a *deployment decision*: given an
 arch × shape × device count, pick the cheapest point that fits memory and
 return it as a ``TunedPlan`` — strategy, mesh factorization, memory-model
 switches, and the projected bottleneck. ``launch/train.py --strategy auto``
-deploys the plan (``launch.mesh.mesh_for_plan`` shapes its mesh), so the
-oracle is the decision-maker, not just a report. (The reference's
-``build_cell`` and its serving ``auto`` come with ROADMAP queue 1 item 7's
-next cut.)
+deploys the plan (``launch.mesh.mesh_for_plan`` shapes its mesh, and
+``launch.build.build_cell`` assembles the cell), as ``launch/serve.py
+--strategy auto`` and ``api.Oracle.build`` do, so the oracle is the
+decision-maker, not just a report.
 
 Ranking (cheapest-that-fits):
   1. drop points that violate a scaling limit or the per-PE memory cap;

@@ -279,8 +279,15 @@ def calibrate_cluster(mesh, *, base: ClusterSpec | None = None,
     (``per_pe_compute``) divide the measured rate by the rank count.
 
     Returns ``(fitted ClusterSpec, raw measurements)``, the same on every
-    rank."""
+    rank. Without a mesh (one device) only the compute is calibrated: the
+    base with its measured rate, and no measurements."""
     base = ClusterSpec.coerce(base) or ClusterSpec.of("host")
+    if mesh is None:
+        if loss_fn is not None:
+            rate = calibrate_compute(loss_fn, params, batch, flops_per_step,
+                                     base=base.system).peak_flops
+            base = replace(base, peak_flops=rate, compute_efficiency=1.0)
+        return base, []
     if loss_fn is not None:
         rate = _compute_rate(mesh, loss_fn, list(params), batch,
                              flops_per_step, base.system)

@@ -23,7 +23,7 @@ the (p/(r·c), r, c) grid of ``grid`` = (r, c) over the same world
 p2 = r·c, p2r = r, p2c = c, as the reference does; a CNN or an SSM model
 there raises (ROADMAP queue 1 item 8). "ep" raises, naming its ROADMAP
 item. ``measure_serving`` replays a request trace through the serving
-engine, on one device or across the ranks of a (1, p2) mesh under
+engine, on one device or across the ranks of a (p1, p2) mesh under
 serve_tp or serve_seqkv.
 
 The reference's ``validate`` never measures the pipeline on a CNN: it
@@ -184,7 +184,7 @@ def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
 
 def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
              flops_per_sample: float, B: int, S: int = 128,
-             cluster=None,
+             oracle_cfg_kw: dict | None = None, cluster=None,
              grid: tuple[int, int] | None = None) -> list[ValidationPoint]:
     """Measure + project each strategy at p = the mesh's rank count (1
     without one) on ``ctx.device``; paper Fig. 3. ``S``: an LM's tokens a
@@ -201,6 +201,8 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
     ``model`` itself (``calibrate_host_system``, with α/β per mesh axis),
     the reference's default; ranks that timeshare a device (a mesh on one
     card, or the CPU) get 1/p of its measured rate, as in the reference.
+    ``oracle_cfg_kw``: ``OracleConfig`` keywords the projections take
+    (a session's overrides); the cluster's φ/σ tables fill the rest.
     ``grid``: (p2r, p2c) for "summa", measured on that grid of the same
     world and projected at the matching lattice point."""
     stats = stats_for(model_cfg, S)
@@ -215,6 +217,7 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
         kw = {}
     else:
         sysm, kw = cluster.system, cluster.oracle_kw()
+    kw = {**kw, **(oracle_cfg_kw or {})}
     cfg = OracleConfig(B=B, D=B, **kw)  # 1 iteration/epoch
     tm = TimeModel(sysm)
     points = []
@@ -260,12 +263,13 @@ def measure_serving(model, ctx: ShardingCtx, strategy: str, serve_cfg,
     validated against.
 
     ``strategy`` is a serving layout, "serve_tp" or "serve_seqkv". Across
-    ranks (a sharded ``ctx`` over a (1, p2) mesh; a data axis above 1
-    raises, ROADMAP queue 1 item 7) the replay runs under that layout's
-    rules at width p2, with ``kv_shards`` 1 (serve_tp, the cache split on
-    its kv heads) or p2 (serve_seqkv, split on its span), as the serving
-    oracle prices them; one device serves either at width 1 with one
-    shard. ``model`` is whole (this rank's blocks are cut here) or
+    ranks (a sharded ``ctx`` over a (p1, p2) mesh) the replay runs under
+    that layout's rules at width p2, with ``kv_shards`` 1 (serve_tp, the
+    cache split on its kv heads) or p2 (serve_seqkv, split on its span),
+    as the serving oracle prices them, and with p1 > 1 each decode batch's
+    rows split over the p1 data groups (``serve.engine``: one schedule
+    whose batch is split, where the serving oracle prices p1 independent
+    replicas); one device serves either at width 1 with one shard. ``model`` is whole (this rank's blocks are cut here) or
     already this rank's blocks (``launch.build.build_model`` on the ctx:
     both layouts place the weights alike, and a full-width model whole on
     every rank would not fit). Every rank runs the replay and returns its
@@ -282,7 +286,7 @@ def measure_serving(model, ctx: ShardingCtx, strategy: str, serve_cfg,
     width = 1
     if ctx.sharded:
         ctx = replace(ctx, rules=make_rules(strategy))
-        serving_mesh(ctx)
+        serving_mesh(ctx, serve_cfg.max_batch)
         width = ctx.mesh.shape["model"]
         if not all(hasattr(p, "place") for p in model.parameters()):
             model = sharded_copy(model, ctx)

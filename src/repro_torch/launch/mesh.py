@@ -25,14 +25,14 @@ The transport is an argument, never a fallback:
 The world is initialised from ``torchrun``'s environment (``env://``: RANK,
 WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK), the counterpart of the
 JAX trainer taking ``jax.devices()``; a spawner that starts ranks itself
-sets the same variables (``spawn_env``).
+sets the rank variables (``spawn_env``) and initialises the world itself
+(``launch.spawn``: a file store).
 """
 from __future__ import annotations
 
 import itertools
 import math
 import os
-import socket
 from dataclasses import dataclass
 
 import torch
@@ -218,15 +218,9 @@ def init_from_env(backend: str, timeout=None) -> None:
     dist.init_process_group(backend, init_method="env://", **kw)
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def spawn_env(rank: int, world: int, port: int) -> None:
-    """Sets the variables torchrun would set for ``rank`` of ``world`` ranks
-    on this host (for a spawner that starts the ranks itself)."""
+def spawn_env(rank: int, world: int) -> None:
+    """Sets the rank variables torchrun would set for ``rank`` of ``world``
+    ranks on this host (for a spawner that starts the ranks itself and
+    initialises their world; the entry points read WORLD_SIZE)."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))

@@ -23,14 +23,24 @@ Under ``torchrun`` (or a spawner that set its variables and initialised
 the world) every rank serves on a (1, n) mesh of the n ranks, as the
 reference's ``make_host_mesh(model=n)``: ``--strategy serve_tp`` splits
 the weights and the cache's kv heads over them, ``serve_seqkv`` the
-weights and the cache's span (``--kv-shards``, by default n under
-serve_seqkv and 1 otherwise; ``max_len`` is aligned to
+weights and the cache's span (``--kv-shards``, by default the mesh's model
+size under serve_seqkv and 1 otherwise; ``max_len`` is aligned to
 ``prefill_chunk·kv_shards``, as the reference aligns it). The transport is
 ``--backend``: nccl (a card a rank; the default on cuda) or gloo (ranks
 sharing a card; the default on the cpu). Rank 0 prints and writes
-``--json-out``. ``--strategy auto`` raises: serving a tuned plan needs the
-data axis in serving (``serve/engine.serving_mesh``), the rest of ROADMAP
-queue 1 item 7 (the trainer's ``--strategy auto`` is ported).
+``--json-out``.
+
+``--strategy auto`` asks the training auto-tuner for the serving layout,
+as the reference's does (``resolve_auto_strategy``): the plan for the n
+ranks (1 without a world) at ``--max-batch`` and ``--prompt-len`` +
+``--gen`` tokens, on the machine the cluster flags describe (``--system``,
+default ``host``; ``--cluster`` takes a fitted ``ClusterSpec`` JSON), with
+no memory switches and no pipeline; where the winner's model width p2
+does not tile n, a warning and a re-tune over the widths that do. Rank 0
+prints the plan; it deploys as ``plan.exec_strategy("decode")`` on the
+(n / p2, p2) mesh, so a plan with p1 > 1 serves with its decode batch
+split over "data" (``serve/engine.py``). A layout the engine cannot serve
+raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -38,10 +48,12 @@ import argparse
 import json
 import os
 import time
+import warnings
 
 import torch.distributed as dist
 
 from ..configs import get_config
+from ..core.cluster import add_cluster_args
 from ..nn.module import ShardingCtx
 from ..parallel.strategies import make_rules
 from ..serve import Engine, ServeConfig, TrafficModel
@@ -64,9 +76,42 @@ def trace_max_len(trace, prefill_chunk: int, gen: int,
     return -(-need // align) * align
 
 
-def main(argv=None) -> dict:
-    """Replays the trace; returns the report's summary (every rank its
-    own)."""
+def resolve_auto_strategy(mc, args, n: int, log: bool = True):
+    """The tuner's serving layout on ``n`` processing elements: (strategy
+    name, model width), as the reference's. Re-tunes over the divisors of
+    ``n`` when the winner's p2 cannot tile the mesh. ``log``: print the
+    plan (rank 0)."""
+    from ..core.autotune import autotune, stats_for_model
+    from ..core.cluster import ClusterSpec
+    from ..core.oracle import TimeModel
+    cluster = ClusterSpec.from_cli_args(args)
+    stats = stats_for_model(mc, args.prompt_len + args.gen)
+    B = args.max_batch
+    # no memory switches (no optimizer to shard, no backward to remat) and
+    # no pipeline (its schedules are training schedules), as the reference
+    kw = dict(fallback="serve_tp", cluster=cluster, switches=None,
+              allow_pipeline=False)
+    plan = autotune(stats, TimeModel(cluster.system),
+                    cluster.oracle_config(B=B, D=B), n, **kw)
+    if n % plan.p2:
+        tiling = tuple(k for k in range(1, n + 1) if n % k == 0)
+        warnings.warn(
+            f"tuned model width p2={plan.p2} cannot tile {n} devices; "
+            f"re-tuning over widths {tiling} for the best plan that does",
+            stacklevel=2)
+        plan = autotune(stats, TimeModel(cluster.system),
+                        cluster.oracle_config(B=B, D=B), n,
+                        model_widths=tiling, **kw)
+    if log:
+        print(plan.describe(), flush=True)
+    return plan.exec_strategy("decode"), plan.p2
+
+
+def main(argv=None, cfg=None) -> dict:
+    """Replays the trace; returns the report's summary with the strategy,
+    the mesh and each request's tokens (every rank its own). ``cfg``: an
+    ``ArchConfig`` to serve in place of the registry's ``--arch`` (a
+    caller's cut of it)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -103,44 +148,55 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None,
                     help="write the report summary as JSON")
+    # the machine --strategy auto tunes for (default: this box)
+    add_cluster_args(ap, default_system="host")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
+    cfg = cfg or get_config(args.arch)
     if cfg.family != "lm":
         raise SystemExit(
             f"the serving engine decodes lm archs, not {cfg.family}")
-    if args.strategy == "auto":
-        raise NotImplementedError(
-            "--strategy auto in serving deploys a tuned plan's data axis "
-            "(serve/engine.serving_mesh), ROADMAP queue 1 item 7")
-    if args.strategy not in LAYOUTS:
+    if args.strategy not in LAYOUTS + ("auto",):
         raise SystemExit(f"--strategy {args.strategy}: the engine serves "
-                         f"under {LAYOUTS}")
+                         f"under {LAYOUTS} or 'auto'")
     world = "WORLD_SIZE" in os.environ
     # a caller that has initialised the world (launch.spawn) keeps it
     own = world and not dist.is_initialized()
-    if world:
-        backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
-        if own:
-            init_from_env(backend)
-        mesh = make_host_mesh(model=dist.get_world_size(), backend=backend,
-                              device=args.device)
-        ctx = ShardingCtx(mesh.device, use_pallas=True, mesh=mesh,
-                          rules=make_rules(args.strategy))
-    else:
-        ctx = ShardingCtx(args.device, use_pallas=True)
+    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+    if own:
+        init_from_env(backend)
     try:
-        return _serve(args, cfg, ctx)
+        strategy, width = args.strategy, dist.get_world_size() if world \
+            else 1
+        if strategy == "auto":
+            mc = cfg.smoke_model if args.smoke else cfg.model
+            strategy, width = resolve_auto_strategy(
+                mc, args, width, log=not world or dist.get_rank() == 0)
+            if strategy not in LAYOUTS:
+                raise NotImplementedError(
+                    f"the tuned serving layout {strategy} cannot deploy: "
+                    f"the engine serves under {LAYOUTS} (expert "
+                    f"parallelism needs MoE, ROADMAP queue 1 item 10)")
+        if world:
+            mesh = make_host_mesh(model=width, backend=backend,
+                                  device=args.device)
+            ctx = ShardingCtx(mesh.device, use_pallas=True, mesh=mesh,
+                              rules=make_rules(strategy))
+        else:
+            ctx = ShardingCtx(args.device, use_pallas=True)
+        return _serve(args, cfg, ctx, strategy)
     finally:
         if own:
             dist.destroy_process_group()
 
 
-def _serve(args, cfg, ctx: ShardingCtx) -> dict:
-    width = ctx.mesh.shape["model"] if ctx.sharded else 1
+def _serve(args, cfg, ctx: ShardingCtx, strategy: str) -> dict:
+    shape = ({"data": ctx.mesh.shape["data"], "model": ctx.mesh.shape[
+        "model"]} if ctx.sharded else {"data": 1, "model": 1})
+    width = shape["model"]
     log = not ctx.sharded or ctx.mesh.rank == 0
     kv_shards = args.kv_shards if args.kv_shards is not None else (
-        width if args.strategy == "serve_seqkv" else 1)
+        width if strategy == "serve_seqkv" else 1)
     model = build_model(cfg, ctx, smoke=args.smoke, seed=args.seed)
     mc = cfg.smoke_model if args.smoke else cfg.model
 
@@ -159,21 +215,21 @@ def _serve(args, cfg, ctx: ShardingCtx) -> dict:
     eng = Engine(model, ctx, scfg)
     if log:
         print(f"engine up in {time.time() - t0:.1f}s: {eng.geo}, "
-              f"{eng.alloc.capacity} blocks, strategy={args.strategy}, "
-              f"mesh={{'data': 1, 'model': {width}}}, device={ctx.device}",
-              flush=True)
+              f"{eng.alloc.capacity} blocks, strategy={strategy}, "
+              f"mesh={shape}, device={ctx.device}", flush=True)
 
     report = eng.run(trace, honor_arrivals=not args.closed_loop)
     summary = report.summary()
+    out = {"strategy": strategy, "mesh": shape, **summary,
+           "tokens_by_request": [r.tokens for r in report.requests]}
     if not log:
-        return summary
+        return out
     print(json.dumps(summary, indent=1))
     if report.requests:
         print(f"first request's tokens: {report.requests[0].tokens}")
     if args.json_out:
         with open(args.json_out, "w") as f:
-            json.dump({"strategy": args.strategy,
-                       "mesh": {"data": 1, "model": width},
+            json.dump({"strategy": strategy, "mesh": shape,
                        "config": {"max_batch": scfg.max_batch,
                                   "max_len": scfg.max_len,
                                   "block_tokens": scfg.block_tokens,
@@ -181,7 +237,7 @@ def _serve(args, cfg, ctx: ShardingCtx) -> dict:
                                   "kv_shards": scfg.kv_shards},
                        **summary}, f, indent=1)
         print(f"wrote {args.json_out}")
-    return summary
+    return out
 
 
 if __name__ == "__main__":

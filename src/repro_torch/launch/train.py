@@ -27,7 +27,8 @@ trainer sets it): builds the (smoke or full) model with weights
 drawn from ``--seed``, the deterministic synthetic loader (images, volumes
 for CosmoFlow, the bigram token stream for the LMs) and the train step, and
 runs a plain loop on ``--device`` (``cuda`` unless told otherwise; without
-CUDA it raises).
+CUDA it raises). Under every strategy the model and step are one cell of
+``launch.build.build_cell``.
 
 Under ``torchrun`` (its WORLD_SIZE in the environment) the ranks form a
 (data, model) mesh (``--model`` ranks on the model axis; the reference's
@@ -70,8 +71,20 @@ switches.
 Like the JAX trainer it trains without ``use_pallas``: none of the four
 kernels has a backward, in the JAX package or here, so the convs, norms,
 attention and SSD of a training step are their plain versions.
-Checkpointing and ``--elastic`` are not ported (ROADMAP queue 1 items 7
-and 9).
+
+``--ckpt-dir`` checkpoints the train state into ``<ckpt-dir>/<arch>``
+(``checkpoint.Checkpointer``: whole leaves, written by rank 0 across
+ranks, a config tag of the arch and ``--smoke``) every ``--ckpt-every``
+steps (async) and at the end (blocking; skipped when the last async save
+holds that step), and a run resumes from the latest
+complete step there ("resumed from step k"; "no new steps" when it is
+already at ``--steps``): the loader draws batch k for step k, so a resumed
+run repeats the straight run's losses bit for bit. Without ``--ckpt-dir``
+the trainer writes and resumes nothing (the reference defaults to
+``checkpoints``; in the port a default directory would make every run
+with the same arch resume the last one's state, across the test suite's
+concurrent runs too). Restart-on-failure, the straggler watch and
+``--elastic`` are not ported (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -82,23 +95,22 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..checkpoint import Checkpointer, config_hash
 from ..configs import get_config
+from ..configs.base import ShapeSpec
 from ..core.autotune import TunedPlan, autotune, stats_for_model
 from ..core.cluster import ClusterSpec, add_cluster_args
-from ..core.layer_stats import stats_for
 from ..core.oracle import TimeModel
 from ..data.pipeline import DataConfig, Loader
 from ..models.cnn import CosmoFlowConfig, ResNetConfig, VGGConfig
 from ..models.transformer import LMConfig
 from ..nn.module import ShardingCtx
 from ..optim.optimizers import OptimizerConfig
-from ..parallel.schedules import (SCHEDULE_NAMES, make_pipeline_train_step,
-                                  pipeline_block_costs, pipeline_block_count,
-                                  pipeline_supported)
-from ..parallel.strategies import make_rules
+from ..parallel.schedules import (SCHEDULE_NAMES, gather_pipeline_state,
+                                  pipeline_block_count, pipeline_supported)
 from ..parallel.summa import summa_supported
-from ..training.steps import make_train_step, train_state
-from .build import build_model, shard_batch
+from ..training.steps import train_state
+from .build import build_cell, shard_batch
 from .mesh import init_from_env, make_host_mesh, mesh_for_plan
 
 # the rule tables the CNNs run under, and the LMs (the others raise)
@@ -121,10 +133,12 @@ def data_config_for(mc, batch: int, seq: int = 128,
     raise TypeError(f"{type(mc).__name__} is not ported yet")
 
 
-def main(argv=None) -> dict:
+def main(argv=None, cfg=None) -> dict:
     """Runs the loop; returns the per-step losses and step seconds (each step
     timed from its launch until the device has finished it), the strategy
-    run and, under ``--strategy auto``, the plan."""
+    run, under ``--strategy auto`` the plan, the first step run and the
+    checkpoints saved. ``cfg``: an ``ArchConfig`` to train in place of the
+    registry's ``--arch`` (a caller's cut of it)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -160,9 +174,16 @@ def main(argv=None) -> dict:
                     help="ranks on the mesh's model axis (the pipeline's "
                          "stages; default: all ranks under pipeline; the "
                          "plan's p2 under auto)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint into (and resume from) "
+                         "<ckpt-dir>/<arch>; none without it")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between async checkpoints (and one at the "
+                         "end)")
     # the machine --strategy auto tunes for (default: this box)
     add_cluster_args(ap, default_system="host")
     args = ap.parse_args(argv)
+    args.cfg = cfg or get_config(args.arch)
 
     world = "WORLD_SIZE" in os.environ
     # a caller that has initialised the world (launch.spawn) keeps it
@@ -176,28 +197,23 @@ def main(argv=None) -> dict:
             plan = tune(args, dist.get_world_size() if world else 1)
             if not world or dist.get_rank() == 0:
                 print(plan.describe(), flush=True)
-            cfg = get_config(args.arch)
-            deployable(plan, cfg.smoke_model if args.smoke else cfg.model)
+            deployable(plan, args.cfg.smoke_model if args.smoke
+                       else args.cfg.model)
         strategy = plan.exec_strategy("train") if plan else args.strategy
         if strategy == "pipeline" and args.accum != 1:
             raise SystemExit("--accum > 1 is not supported with --strategy "
                              "pipeline (the pipeline microbatches are the "
                              "accumulation schedule)")
-        if world:
-            if plan is not None:
-                mesh = mesh_for_plan(plan, backend=backend,
-                                     device=args.device)
-            else:
-                model_axis = args.model_axis
-                if strategy == "pipeline" and model_axis is None:
-                    model_axis = dist.get_world_size()
-                mesh = make_host_mesh(model=model_axis, backend=backend,
-                                      device=args.device)
-            ctx = ShardingCtx(mesh.device, mesh=mesh,
-                              rules=make_rules(strategy))
-        else:
-            ctx = ShardingCtx(args.device)
-        return _loop(args, ctx, strategy, plan)
+        mesh = None
+        if world and plan is not None:
+            mesh = mesh_for_plan(plan, backend=backend, device=args.device)
+        elif world:
+            model_axis = args.model_axis
+            if strategy == "pipeline" and model_axis is None:
+                model_axis = dist.get_world_size()
+            mesh = make_host_mesh(model=model_axis, backend=backend,
+                                  device=args.device)
+        return _loop(args, mesh, strategy, plan)
     finally:
         if own:
             dist.destroy_process_group()
@@ -207,7 +223,7 @@ def tune(args, n: int) -> TunedPlan:
     """The reference trainer's ``--strategy auto`` tuning on ``n``
     processing elements: one epoch of exactly ``--batch`` samples, at
     ``--seq`` for an LM, on the machine the cluster flags describe."""
-    cfg = get_config(args.arch)
+    cfg = args.cfg
     mc = cfg.smoke_model if args.smoke else cfg.model
     cluster = ClusterSpec.from_cli_args(args)
     return autotune(stats_for_model(mc, args.seq), TimeModel(cluster.system),
@@ -234,58 +250,56 @@ def deployable(plan: TunedPlan, mc) -> None:
             f"parallelism (ep_df) needs MoE, ROADMAP queue 1 item 10")
 
 
-def _loop(args, ctx: ShardingCtx, strategy: str,
-          plan: TunedPlan | None) -> dict:
-    log = not ctx.sharded or ctx.mesh.rank == 0
-    cfg = get_config(args.arch)
+def _loop(args, mesh, strategy: str, plan: TunedPlan | None) -> dict:
+    log = mesh is None or mesh.rank == 0
+    cfg = args.cfg
     mc = cfg.smoke_model if args.smoke else cfg.model
-    pipe = ctx.sharded and strategy == "pipeline"
     # the plan's tables run on any model that reaches here (deployable);
     # by hand the CNNs take the paper's six
-    if ctx.sharded and not pipe and plan is None and strategy not in (
-            LM_STRATEGIES if isinstance(mc, LMConfig) else CNN_STRATEGIES):
+    if mesh is not None and plan is None and strategy != "pipeline" and \
+            strategy not in (LM_STRATEGIES if isinstance(mc, LMConfig)
+                             else CNN_STRATEGIES):
         raise SystemExit(f"--strategy {strategy}: the CNNs run under "
                          f"{CNN_STRATEGIES}, the LMs under {LM_STRATEGIES}")
     zero1 = plan.zero1 if plan is not None else "zero1" in strategy
-    opt = OptimizerConfig(lr=args.lr, zero1=zero1)
-    if pipe:
-        # every rank holds the whole model and updates the blocks it owns
-        model = build_model(cfg, ShardingCtx(ctx.device), smoke=args.smoke,
-                            seed=args.seed)
-        segments = args.segments or (plan.segments if plan else 8)
-        schedule, virtual = args.schedule, args.virtual_stages
-        if plan is not None:
-            schedule = plan.schedule if schedule == "auto" else schedule
-            virtual = plan.virtual_stages
-        elif schedule == "auto":
-            schedule = "gpipe"
-        lm = {}
-        if isinstance(mc, LMConfig):
-            lm = dict(block_costs=pipeline_block_costs(
-                model, stats_for(mc, args.seq)), q_chunk=min(256, args.seq))
-        step = make_pipeline_train_step(
-            model, opt, ctx, segments=segments, schedule=schedule,
-            virtual_stages=virtual, **lm)
-        if log:
-            print(f"pipeline schedule={schedule}"
-                  + (f" v={virtual}" if schedule == "interleaved" else "")
-                  + f" segments<={segments} cuts={step.bounds}", flush=True)
-    else:
-        model = build_model(cfg, ctx, smoke=args.smoke, seed=args.seed)
-        fwd_kw = ({"q_chunk": min(256, args.seq)} if cfg.family == "lm"
-                  else {})
-        if plan is not None and cfg.family == "lm":
-            fwd_kw["remat"] = plan.remat   # deploy the plan's remat switch
-        step = make_train_step(model, opt, ctx, accum=args.accum, **fwd_kw)
+    # every cell is assembled by build_cell, as in the reference; a plan's
+    # schedule, segments and virtual stages give way to --schedule and
+    # --segments given explicitly. On one device the strategy is moot: the
+    # single-device step (a pipeline's one stage holds the whole model)
+    by_hand = strategy if mesh is not None else "data"
+    cell = build_cell(
+        cfg, ShapeSpec("train_cli", args.seq, args.batch, "train"), mesh,
+        "auto" if plan is not None else by_hand, smoke=args.smoke,
+        q_chunk=min(256, args.seq), opt=OptimizerConfig(lr=args.lr,
+                                                         zero1=zero1),
+        accum=args.accum, plan=plan, segments=args.segments,
+        schedule=None if args.schedule == "auto" else args.schedule,
+        virtual_stages=None if plan is not None else args.virtual_stages,
+        device=args.device, seed=args.seed)
+    model, step, ctx, opt = (cell.model, cell.step_fn, cell.ctx,
+                             cell.meta["opt"])
+    pipe = "pipeline" in cell.meta
+    if pipe and log:
+        _print_pipeline(step, **cell.meta["pipeline"])
     state = train_state(model, opt, ctx)
     loader = Loader(data_config_for(mc, args.batch, args.seq, args.seed),
                     ctx.device)
+    ckpt, start = None, 0
+    if args.ckpt_dir:
+        ckpt = Checkpointer(f"{args.ckpt_dir}/{args.arch}",
+                            config_tag=config_hash((args.arch, args.smoke)),
+                            mesh=ctx.mesh if ctx.sharded else None)
+        start = ckpt.latest_step() or 0
+        if start:
+            state, start = ckpt.restore(state)
+            if log:
+                print(f"resumed from step {start}", flush=True)
 
     losses, step_s = [], []
     t_start = time.perf_counter()
     if ctx.sharded and log:
         print(f"mesh {ctx.mesh} strategy {strategy}", flush=True)
-    for s in range(args.steps):
+    for s in range(start, args.steps):
         batch = loader.batch_at(s)
         if not pipe:
             batch = shard_batch(batch, ctx)
@@ -299,12 +313,23 @@ def _loop(args, ctx: ShardingCtx, strategy: str,
             print(f"step {s:5d} loss {losses[-1]:.4f} "
                   f"grad_norm {float(m['grad_norm']):.3f} "
                   f"({time.perf_counter() - t_start:.1f}s)", flush=True)
+        if ckpt is not None and (s + 1) % args.ckpt_every == 0:
+            _save(ckpt, state, s + 1, step if pipe else None, blocking=False)
+    final = max(start, args.steps)
+    if ckpt is not None:
+        ckpt.wait()
+        if ckpt.latest_step() != final:   # not the last async save's step
+            _save(ckpt, state, final, step if pipe else None, blocking=True)
     if losses and log:
-        print(f"done at step {state['step']}; loss {losses[0]:.4f} → "
+        print(f"done at step {final}; loss {losses[0]:.4f} → "
               f"{losses[-1]:.4f}")
+    elif log:     # resumed at or past --steps: no new steps this run
+        print(f"done at step {final}; no new steps "
+              f"(checkpoint already at --steps)")
     out = {"losses": losses, "step_s": step_s, "device": str(ctx.device),
-           "strategy": strategy, "plan": plan,
-           "mesh": dict(ctx.mesh.shape) if ctx.sharded else None}
+           "strategy": strategy, "plan": plan, "start_step": start,
+           "mesh": dict(ctx.mesh.shape) if ctx.sharded else None,
+           "ckpt_saves": ckpt.saves if ckpt is not None else []}
     if ctx.device.type == "cuda":
         out["peak_bytes"] = _peaks(ctx)
         if log:
@@ -312,6 +337,22 @@ def _loop(args, ctx: ShardingCtx, strategy: str,
                   f"{[f'{b / 2**30:.4g} GiB' for b in out['peak_bytes']]}",
                   flush=True)
     return out
+
+
+def _print_pipeline(step, schedule: str, segments: int,
+                    virtual_stages: int):
+    print(f"pipeline schedule={schedule}"
+          + (f" v={virtual_stages}" if schedule == "interleaved" else "")
+          + f" segments<={segments} cuts={step.bounds}", flush=True)
+
+
+def _save(ckpt: Checkpointer, state: dict, n: int, pipe_step,
+          blocking: bool) -> None:
+    """Checkpoints ``state`` at step ``n`` on every rank; a pipeline's
+    stages first hand every rank the blocks they own."""
+    if pipe_step is not None:
+        gather_pipeline_state(state, pipe_step)
+    ckpt.save(state, n, blocking=blocking)
 
 
 def _peaks(ctx: ShardingCtx) -> list[int]:

@@ -42,7 +42,9 @@ splits its kv heads, so each rank writes and reads its own heads and
 ``wo`` is row-parallel; serve_seqkv splits its shard dim, so each rank
 holds a contiguous range of positions, writes only the new tokens that
 fall in it, and the ranks merge their partial softmaxes as flash decoding
-does (``_sharded_decode``).
+does (``_sharded_decode``). A batch split over "data" (a decode batch on a
+(p1, p2) serving mesh) stays split: each data group runs its rows against
+its rows of the cache, over its own "model" ranks.
 
 Grouped kv heads, a sliding window and its ring cache, a logit softcap, an
 output bias, ``qk_norm``, MLA and cross-attention come with the first ported
@@ -227,7 +229,7 @@ class Attention(nn.Module):
             t = ctx.constrain(t, ("batch", None, act, None))
             y = t.local
             if rotate:
-                y = apply_rope(y, positions, c.rope_base)
+                y = apply_rope(y, _mine(positions, t), c.rope_base)
             return Sharded(y, t.shape, t.place, t.mesh)
 
         bias = (self.bq, self.bk, self.bv) if c.use_bias else (None,) * 3
@@ -313,7 +315,8 @@ class Attention(nn.Module):
                         ctx: ShardingCtx) -> Sharded:
         """``decode`` across ranks, each cache leaf a ``Sharded`` placed by
         the rules (``CACHE_AXES``). The projections are ``_sharded``'s; q,
-        k and v are then laid out with the cache's kv-head split:
+        k and v are then laid out with the cache's rows (split over "data"
+        where the rules split the batch) and its kv-head split:
 
         * ``serve_tp``: the heads split, the cache's span whole (its one
           shard cannot split). Each rank writes and reads its own heads;
@@ -330,15 +333,13 @@ class Attention(nn.Module):
           key's (the row's own new key)."""
         B, C, _ = x.shape
         kc, vc = cache["k"], cache["v"]
-        if x.place[0] or kc.place[0]:
-            raise NotImplementedError(
-                "a decode batch split over the mesh: the data axis in "
-                "serving is ROADMAP queue 1 item 7")
         dev = x.local.device
         positions = _positions(pos, B, C, dev)
         q, k, v = self._sharded_qkv(x, ctx, positions)
-        heads = ((), (), kc.place[3], ())
+        heads = (kc.place[0], (), kc.place[3], ())
         q, k, v = (t.relayout(heads) for t in (q, k, v))
+        positions = _mine(positions, kc)             # this rank's rows
+        B = positions.shape[0]
         kf, vf = _flat(kc.local), _flat(vc.local)    # (B, T, KV_r, hd)
         T = kf.shape[1]
         if C > T:
@@ -408,16 +409,22 @@ def _positions(pos, B: int, C: int, device) -> torch.Tensor:
             + torch.arange(C, device=device)).expand(B, C)
 
 
+def _mine(positions: torch.Tensor, t: Sharded) -> torch.Tensor:
+    """The rows of (B, C) ``positions`` that this rank holds of ``t``,
+    whose first dim is the batch (all of them where that dim is whole; a
+    (1, C) row broadcasts)."""
+    if positions.shape[0] == 1 or not t.place[0]:
+        return positions
+    return positions[block_index(t.mesh, t.shape, t.place)[0]]
+
+
 def _write_prompt(cache: dict, k: Sharded, v: Sharded) -> None:
     """The prompt's keys and values (B, S, KV, hd), whole over the
     sequence, into the first S positions of a ``Sharded`` cache: each rank
-    its positions and its kv heads."""
+    its rows (a batch split over "data"), its positions and its kv
+    heads."""
     kc = cache["k"]
-    if k.place[0] or kc.place[0]:
-        raise NotImplementedError(
-            "a prompt batch split over the mesh: the data axis in serving "
-            "is ROADMAP queue 1 item 7")
-    heads = ((), (), kc.place[3], ())
+    heads = (kc.place[0], (), kc.place[3], ())
     T = kc.local.shape[1] * kc.shape[2]
     off = block_index(kc.mesh, kc.shape, kc.place)[1].start * kc.shape[2]
     n = max(0, min(k.shape[1] - off, T))

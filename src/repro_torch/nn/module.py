@@ -125,8 +125,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
     There is no fallback: asking for CUDA where it is absent raises. On CUDA,
     fp32 stays fp32 as in the reference: cuDNN's TF32 convolutions (on by
-    default) and TF32 matmuls are switched off for the process."""
+    default) and TF32 matmuls are switched off for the process. ``meta``
+    holds shapes only (``launch.build.build_cell``'s stand-ins); nothing
+    runs there."""
     dev = torch.device(device)
+    if dev.type == "meta":
+        return dev
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to "

@@ -18,12 +18,17 @@ consumes, run ``model.decode_step`` on it, and scatter back only the
 touched blocks. The reference jits the cells and donates the pool so XLA
 updates it in place; here the pool's tensors are written in place.
 
-Across ranks (a sharded ``ctx``, a (1, p2) mesh of "data" and "model"; a
-data axis above 1 comes with ROADMAP queue 1 item 7) one ``Engine`` runs
-on every rank over the same model's blocks: the pool is each rank's block
-of the reference's (``kv_cache.pool_spec``), split as the ctx's rules
-split the dense cache, serve_tp on its kv heads, serve_seqkv on its
-shards (``kv_shards`` = p2). The reference is one controller; here every
+Across ranks (a sharded ``ctx``, a (p1, p2) mesh of "data" and "model")
+one ``Engine`` runs on every rank over the same model's blocks: the pool
+is each rank's block of the reference's (``kv_cache.pool_spec``), split as
+the ctx's rules split the dense cache, serve_tp on its kv heads,
+serve_seqkv on its shards (``kv_shards`` = p2), its blocks axis replicated
+over "data" as the reference's. A prompt chunk (one row) is computed by
+every data group, as the reference's replicated prefill is; a decode
+batch's ``max_batch`` rows are split in blocks over "data" (``max_batch``
+must divide by p1), each group runs its rows over its "model" ranks,
+serve_tp and serve_seqkv as on a (1, p2) mesh, and ``greedy`` gathers the
+groups' tokens over "data". The reference is one controller; here every
 rank runs the host schedule, which must be the same on every rank or the
 ranks' collectives deadlock. It is: admission, block tables and batch
 rows follow from the requests and the tokens, which every rank holds
@@ -60,6 +65,7 @@ import torch
 from ..models.transformer import greedy
 from ..nn.module import ShardingCtx, zeros_like_spec
 from ..parallel import collectives as coll
+from ..parallel.sharded import placement
 from . import kv_cache as kvc
 
 __all__ = ["ServeConfig", "Request", "RequestStats", "ServeReport",
@@ -161,7 +167,7 @@ class Engine:
     def __init__(self, model, ctx: ShardingCtx, cfg: ServeConfig):
         if not (hasattr(model, "decode_step") and hasattr(model, "prefill")):
             raise ValueError(f"{type(model).__name__} has no decode path")
-        serving_mesh(ctx)
+        serving_mesh(ctx, cfg.max_batch)
         dtype = cfg.dtype or torch.bfloat16
         self.model, self.ctx, self.cfg = model, ctx, cfg
         geo = kvc.cache_geometry(model, cfg.max_len, shards=cfg.kv_shards,
@@ -176,6 +182,9 @@ class Engine:
         self.alloc = kvc.BlockAllocator(num_blocks)
         self.pool = zeros_like_spec(kvc.pool_spec(model, geo, num_blocks,
                                                   dtype), ctx.device, ctx)
+        # the mesh axes that split a decode batch's rows (the rules' "batch")
+        self._rows = placement(ctx.mesh, ctx.pspec(
+            ("batch",), (cfg.max_batch,)))[0] if ctx.sharded else ()
         self.tables = np.full((cfg.max_batch, geo.n_blk), kvc.NULL_BLOCK,
                               np.int64)
         self.slots: list = [None] * cfg.max_batch
@@ -214,7 +223,7 @@ class Engine:
         greedy next tokens (B,) on the device."""
         geo = self.geo
         tables_d = self._device(tables)
-        dense = kvc.gather_view(self.pool, tables_d)
+        dense = kvc.gather_view(self.pool, tables_d, self._rows)
         logits, dense = self.model.decode_step(
             self._device(tokens), dense, self._device(pos), self.ctx)
         jidx = ((pos % geo.span) // geo.bspan)[:, None]
@@ -391,16 +400,20 @@ class Engine:
         return ServeReport(requests=done, wall_s=wall)
 
 
-def serving_mesh(ctx: ShardingCtx) -> None:
-    """Raises for a mesh the engine does not serve on: any axis but "model"
-    above 1 (the reference reaches a serving mesh with a data axis only
-    through ``--strategy auto``)."""
+def serving_mesh(ctx: ShardingCtx, max_batch: int) -> None:
+    """Raises for a mesh the engine does not serve on: any axis but "data"
+    and "model" above 1 (the SUMMA grid trains; it serves nothing), or a
+    decode batch of ``max_batch`` rows that the "data" axis cannot split
+    into whole blocks."""
     if not ctx.sharded:
         return
     other = {a: n for a, n in ctx.mesh.shape.items()
-             if a != "model" and n > 1}
+             if a not in ("data", "model") and n > 1}
     if other:
         raise NotImplementedError(
-            f"a serving mesh with {other}: the engine serves (1, p2) "
-            f"meshes; a data axis in serving comes with --strategy auto, "
-            f"ROADMAP queue 1 item 7")
+            f"a serving mesh with {other}: the engine serves (data, model) "
+            f"meshes")
+    p1 = ctx.mesh.shape.get("data", 1)
+    if max_batch % p1:
+        raise ValueError(f"max_batch={max_batch} does not split over the "
+                         f"{p1} data groups of the mesh")

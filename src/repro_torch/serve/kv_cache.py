@@ -26,8 +26,13 @@ tables are the same on every rank. ``gather_view`` (an index over the
 blocks axis and a reshape) builds, from the local blocks, this rank's
 block of the dense view that ``Attention.decode`` consumes unchanged, a
 copy; ``scatter_blocks`` writes the touched blocks of that view back into
-the local pool, in place. Exactness against the dense path is gated by
-``max_abs_diff``.
+the local pool, in place. On a mesh with a data axis the blocks axis stays
+replicated, as the reference's ``pool_spec`` keeps it, so every data group
+holds the whole pool; a decode batch split over "data" gathers and
+scatters only this rank's rows (``gather_view``'s ``rows``), so a group
+writes the blocks of its own rows and reads only those (a prompt chunk,
+one row, is written by every group). Exactness against the dense path is
+gated by ``max_abs_diff``.
 
 Allocation is host-side and O(1): a free-list ``BlockAllocator`` with
 block 0 reserved as the null block. Unallocated block-table entries point
@@ -197,21 +202,28 @@ def _local(t):
     return t.local if isinstance(t, Sharded) else t
 
 
-def gather_view(pool: dict, tables: torch.Tensor) -> dict:
+def gather_view(pool: dict, tables: torch.Tensor, rows: tuple = ()) -> dict:
     """Dense cache of the sequences in ``tables`` (B, n_blk) block ids: an
     index over the pool's blocks axis and a reshape, a new tensor per leaf
     (of a ``Sharded`` pool leaf, this rank's block of the dense view, a
-    ``Sharded`` placed as the leaf). Null-block entries materialise garbage
-    at positions the attention's valid mask (key position ≤ query
-    position) never exposes."""
+    ``Sharded`` placed as the leaf, its batch dim split over ``rows``, the
+    mesh axes the rules give a batch of B: this rank gathers only its block
+    of the rows). Null-block entries materialise garbage at positions the
+    attention's valid mask (key position ≤ query position) never
+    exposes."""
     def one(leaf):
-        g = _local(leaf)[tables]              # (B, nblk, sh, bspan, KV, HD)
-        B, nblk, sh, bspan = g.shape[:4]
-        view = g.transpose(1, 2).reshape(B, sh, nblk * bspan, *g.shape[4:])
+        mine = tables
+        if rows:
+            mine = tables[block_index(leaf.mesh, tables.shape[:1],
+                                      (rows,))[0]]
+        g = _local(leaf)[mine]                # (b, nblk, sh, bspan, KV, HD)
+        b, nblk, sh, bspan = g.shape[:4]
+        view = g.transpose(1, 2).reshape(b, sh, nblk * bspan, *g.shape[4:])
         if not isinstance(leaf, Sharded):
             return view
-        shape = (B, leaf.shape[1], nblk * bspan) + leaf.shape[3:]
-        return Sharded(view, shape, leaf.place, leaf.mesh)
+        shape = (tables.shape[0], leaf.shape[1], nblk * bspan) \
+            + leaf.shape[3:]
+        return Sharded(view, shape, (rows,) + leaf.place[1:], leaf.mesh)
 
     return {"blocks": [{name: one(leaf) for name, leaf in layer.items()}
                        for layer in pool["blocks"]]}
@@ -220,7 +232,8 @@ def gather_view(pool: dict, tables: torch.Tensor) -> dict:
 def scatter_blocks(pool: dict, tables: torch.Tensor, dense: dict,
                    jidx: torch.Tensor) -> dict:
     """Write blocks ``jidx`` (B, nj) of the dense view back into the pool,
-    in place (the local blocks of both, across ranks); returns the pool.
+    in place (the local blocks of both, across ranks; of a view whose rows
+    are split, this rank's rows only); returns the pool.
 
     A decode step touches one block per sequence, a prefill chunk a fixed
     range, so a step writes O(touched blocks), not O(max_len). Rows parked
@@ -228,6 +241,10 @@ def scatter_blocks(pool: dict, tables: torch.Tensor, dense: dict,
     several writes to one place land in no set order, so block 0's contents
     are not deterministic, and no valid position ever reads them.
     """
+    first = dense["blocks"][0][next(iter(dense["blocks"][0]))]
+    if isinstance(first, Sharded) and first.place[0]:
+        mine = block_index(first.mesh, first.shape, first.place)[0]
+        tables, jidx = tables[mine], jidx[mine]
     ids = torch.take_along_dim(tables, jidx, dim=1).reshape(-1)   # (B·nj,)
     nblk = tables.shape[1]
     rows = torch.arange(jidx.shape[0], device=jidx.device)[:, None]

@@ -248,7 +248,7 @@ def runs():
         jax_side[arch] = (jloss, jgrads)
         setups[arch] = (params, batch)
     res = run_ranks(_ranks, 4, setups, backend="gloo", device="cpu",
-                    model=2, timeout_s=600)
+                    model=2, timeout_s=360)
     got = res[0][0]
     for key in res[0][1]:
         got[key] = [every[key] for _, every in res]        # every rank's

@@ -135,7 +135,7 @@ def _ranks(mesh22, inp):
 def ranks():
     inp = _inputs()
     res = run_ranks(_ranks, 4, inp, backend="gloo", device="cpu", model=2,
-                    timeout_s=300)
+                    timeout_s=120)
     return inp, res
 
 

@@ -63,7 +63,7 @@ def _ranks(mesh22):
 @pytest.fixture(scope="module")
 def ranks():
     return run_ranks(_ranks, 4, backend="gloo", device="cpu", model=2,
-                     timeout_s=600)
+                     timeout_s=180)
 
 
 @pytest.mark.parametrize("data", [2, 1])

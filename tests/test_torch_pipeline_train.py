@@ -211,7 +211,7 @@ def _ranks(mesh22):
 @pytest.fixture(scope="module")
 def ranks():
     return run_ranks(_ranks, 4, backend="gloo", device="cpu", model=2,
-                     timeout_s=600)
+                     timeout_s=300)
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))

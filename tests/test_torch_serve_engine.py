@@ -171,10 +171,12 @@ def test_serve_cli_smoke_on_the_cpu(tmp_path):
 
 
 def test_refused_layouts_name_their_items(lms, monkeypatch):
-    """What raises, and names its item: --strategy auto (item 7); a serving
-    mesh with a data axis above 1, for the engine and measure_serving
-    (item 7); no CUDA unless the CPU is asked for. The sharded serving
-    layouts (item 6) now run: serve_seqkv and kv_shards above 1 on one
+    """What raises: a serving mesh with an axis other than "data" and
+    "model" (the SUMMA grid), and a decode batch the data axis cannot
+    split, for the engine and measure_serving; no CUDA unless the CPU is
+    asked for. --strategy auto serves (one device: the p = 1 plan, width
+    1; across ranks in tests/test_torch_serve_auto.py), and so do the
+    sharded serving layouts: serve_seqkv and kv_shards above 1 on one
     device here, across ranks in tests/test_torch_serve_parallel.py."""
     lm = lms[2]
     cfg = ServeConfig(max_len=32, dtype=F32)
@@ -187,15 +189,24 @@ def test_refused_layouts_name_their_items(lms, monkeypatch):
     summary = serve.main(base + ["--kv-shards", "2", "--closed-loop",
                                  "--requests", "2"])
     assert summary["requests"] == 2 and summary["tokens"] == 2 * 16
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        serve.main(base + ["--strategy", "auto"])
+    auto = serve.main(base + ["--strategy", "auto", "--closed-loop",
+                              "--requests", "2"])
+    assert auto["strategy"] == "serve_tp"
+    assert auto["mesh"] == {"data": 1, "model": 1}
+    assert auto["tokens"] == 2 * 16
     mesh22 = types.SimpleNamespace(shape={"data": 2, "model": 2}, size=4,
                                    device=torch.device("cpu"))
     ctx22 = ShardingCtx("cpu", mesh=mesh22)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        Engine(lm, ctx22, cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        measure_serving(lm, ctx22, "serve_tp", cfg, [])
+    odd = ServeConfig(max_len=32, max_batch=3, dtype=F32)
+    with pytest.raises(ValueError, match="max_batch=3"):
+        Engine(lm, ctx22, odd)
+    with pytest.raises(ValueError, match="max_batch=3"):
+        measure_serving(lm, ctx22, "serve_tp", odd, [])
+    grid = types.SimpleNamespace(shape={"data": 1, "model_r": 2,
+                                        "model_c": 2}, size=4,
+                                 device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="model_r"):
+        Engine(lm, ShardingCtx("cpu", mesh=grid), cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "qwen1.5-4b", "--smoke"])

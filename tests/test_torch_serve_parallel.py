@@ -20,8 +20,10 @@ it. An open-loop
 replay (the ranks admit against rank 0's clock) must give every rank the
 same admissions step by step, and the same tokens. ``measure_serving``
 runs both layouts; ``launch.serve.main`` serves serve_seqkv under the
-spawned world with its default ``--kv-shards`` (4); a (2, 2) mesh raises
-for the engine and for ``measure_serving``, naming ROADMAP queue 1 item 7.
+spawned world with its default ``--kv-shards`` (4); on a (2, 2) regrid
+the engine and ``measure_serving`` take a decode batch split over the data
+axis and refuse one that does not split
+(``tests/test_torch_serve_auto.py`` serves on that mesh).
 Every cell call runs the norm through the kernel's wrapper (its plain
 version on the CPU) 2·L + 1 times a rank, and each rank's pool is its
 block of the reference's pool as the JAX rules place it.
@@ -196,15 +198,17 @@ def _ranks(mesh, params, json_out):
     out["cli"] = serve.main(CLI + ["--json-out", json_out])
     mesh22 = mesh.regrid(2, 2)
     ctx22 = ShardingCtx("cpu", mesh=mesh22, rules=make_rules("serve_tp"))
+    odd = dict(SCFG, max_batch=3)
+    Engine(model, ctx22, ServeConfig(**SCFG))       # a batch of 4 splits
     for name, call in (
-            ("engine", lambda: Engine(model, ctx22, ServeConfig(**SCFG))),
-            ("measure_serving", lambda: measure_serving(
+            ("engine", lambda cfg: Engine(model, ctx22, ServeConfig(**cfg))),
+            ("measure_serving", lambda cfg: measure_serving(
                 model, ctx22, "serve_seqkv",
-                ServeConfig(kv_shards=2, **SCFG), trace))):
+                ServeConfig(kv_shards=2, **cfg), trace))):
         try:
-            call()
+            call(odd)
             every["mesh22", name] = None
-        except NotImplementedError as e:
+        except ValueError as e:
             every["mesh22", name] = str(e)
     return (out if mesh.rank == 0 else None), every
 
@@ -254,7 +258,7 @@ def runs(tmp_path_factory):
     _, params = _jax_params()
     params = flatten(jax.tree.map(np.asarray, params))
     res = run_ranks(_ranks, 4, params, str(tmp / "serve.json"),
-                    backend="gloo", device="cpu", model=4, timeout_s=600)
+                    backend="gloo", device="cpu", model=4, timeout_s=240)
     got = res[0][0]
     for key in res[0][1]:
         got[key] = [every[key] for _, every in res]        # every rank's
@@ -350,9 +354,13 @@ def test_serve_cli_under_a_spawned_world(runs):
 
 
 def test_a_data_axis_raises_naming_item_7(runs):
+    """A data axis serves now (queue 1 item 7 is done): on the (2, 2)
+    regrid the engine takes a batch of 4, and a batch of 3, which the data
+    axis cannot split, raises on every rank, for the engine and for
+    measure_serving."""
     for name in ("engine", "measure_serving"):
         for msg in runs["mesh22", name]:
-            assert msg is not None and "queue 1 item 7" in msg, (name, msg)
+            assert msg is not None and "max_batch=3" in msg, (name, msg)
 
 
 def test_every_cell_takes_the_norm_kernels_path(runs):

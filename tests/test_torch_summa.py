@@ -228,7 +228,7 @@ def _flat(ref, prefix):
 @pytest.fixture(scope="module")
 def ranks(reference):
     return run_ranks(_ranks, 4, _flat(reference, "init/"), backend="gloo",
-                     device="cpu", model=2, timeout_s=600)
+                     device="cpu", model=2, timeout_s=360)
 
 
 def test_grid_mesh_coordinates_and_groups(ranks):

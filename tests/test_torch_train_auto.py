@@ -38,6 +38,7 @@ from repro_torch.models import transformer
 from repro_torch.parallel.summa import summa_matmul
 
 B, SEQ, STEPS = 8, 32, 2
+CNN_B = 2           # the smoke ResNet-50's one-process batch (224² images)
 LOSS_RTOL = 1e-6
 SUMMA_RTOL = 1e-5
 # memory caps (bytes) under which the tuner turns remat on for the smoke
@@ -117,14 +118,16 @@ def _counting_checkpoint(calls: list):
 @pytest.mark.parametrize("arch", ["resnet50", "qwen1.5-4b", "mamba2-780m"])
 def test_single_process_plan_is_the_references(arch, capsys):
     """p = 1 on the host system: the printed plan is the reference's, and
-    the single-device trainer trains as without ``auto``."""
-    out = train.main(_argv(arch, "--strategy", "auto"))
-    want = _reference_plan(arch, 1, ("host", None))
+    the single-device trainer trains as without ``auto``. The smoke CNN
+    (224² images) runs at batch 2, its plan tuned at that batch."""
+    batch = CNN_B if arch == "resnet50" else B
+    out = train.main(_argv(arch, "--strategy", "auto", batch=batch))
+    want = _reference_plan(arch, 1, ("host", None), batch=batch)
     assert capsys.readouterr().out.splitlines()[0] == want.describe()
     _same_plan(out["plan"], want)
     assert out["strategy"] == want.exec_strategy("train")
     assert out["mesh"] is None and len(out["losses"]) == STEPS
-    hand = train.main(_argv(arch))["losses"]
+    hand = train.main(_argv(arch, batch=batch))["losses"]
     np.testing.assert_allclose(out["losses"], hand, rtol=LOSS_RTOL)
 
 
@@ -215,7 +218,7 @@ def runs(tmp_path_factory):
     tight = _tight_cluster(tmp_path_factory.mktemp("auto") / "tight.json",
                            RANKS_CAP)
     res = run_ranks(_ranks, 4, tight, backend="gloo", device="cpu",
-                    timeout_s=600)
+                    timeout_s=240)
     single = train.main(_argv("qwen1.5-4b"))["losses"]
     return tight, res, single
 
