@@ -89,17 +89,20 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              and (2, 2) mesh: Qwen1.5-4B at its published widths with 2 of
              its 40 layers, fp32, batch 4 x 512, and Mamba-2 780m the same
              way at batch 4 x 1024 (configs.lm_archs.LM_PARALLEL_SHAPE),
-             weights from seed 0. 2 SGD steps under data, filter,
-             channel, df and ds (the Qwen also df_zero1 and df_zero3; the
-             spatial table is ds's, so it is not run again): the
+             weights from seed 0. 2 SGD steps: the Qwen under data,
+             filter, df, df_zero1 and df_zero3, Mamba under data, filter,
+             channel, df and ds (the spatial table is ds's, so it is not
+             run again; the Qwen's channel and ds are cut for time, see
+             LM_PAR): the
              first loss, the first step's gradient norm and the second loss
              against two single-process steps (computed first, released
              before the spawn) within PAR_LOSS_TOL and PAR_STEP_TOL, with
              the step ms and every rank's peak memory; Fig. 3's LM rows at
-             p = 4 (the Qwen, validate self-calibrated, as the reference's
-             check_oracle_validation: data, filter and df, and the mean;
-             channel, spatial and ds are left out for time, see LM_PAR;
-             gated on finiteness only); the kernel
+             p = 4 (the Qwen, validate self-calibrated, as the
+             reference's check_oracle_validation: data, filter and df,
+             and the mean, each the median of 2 steps after 1 warm-up
+             step; channel, spatial and ds are left out for time, see
+             LM_PAR; gated on finiteness only); the kernel
              launches per rank (none: no kernel has a backward, so LM
              training runs the plain norms, attention and SSD) and the
              phase's wall time.
@@ -235,6 +238,27 @@ Phases, each printing lines of numbers; any failure exits non-zero:
              run's bit for bit; every save's host-copy and write ms and its
              bytes on disk (async and blocking); a torn step directory
              (no .complete) is skipped.
+  14. elastic  the elastic runtime (runtime/elastic.py) in a spawn of its
+             own: PAR_RANKS ranks share the card over gloo, ResNet-50 at
+             full width and depth, batch 32 at 224², fp32, AdamW, cuDNN
+             deterministic, on the [oracle] cluster with a (2, 2) torus
+             whose model axis may ring only in dim 1 (ELASTIC). A
+             baseline through launch.train --strategy auto --elastic, 4
+             steps, a checkpoint every 2; a chaos run through run_elastic
+             with torus dim 0 lost before step 3: the survivors (ranks 0
+             and 1) re-tune on the degraded cluster, lay themselves out
+             as the new plan's mesh, restore the checkpoint at 2 onto it
+             and resume; a planned continuation (bind_plan on the degraded
+             cluster with the first 2 ranks, the baseline's checkpoint at
+             2 restored, plain steps 2-3). Gates: steps 0-1 equal the
+             baseline's bit for bit, steps 2-3 the planned continuation's,
+             the final parameters (gathered whole) equal it; the event
+             reads p 4 → 2, resumed from 2, ranks 2 and 3 left out; the
+             re-tuned (p1, p2) passes the degraded torus's split_mask.
+             Printed: the plan before and after, ms/step on 4 and on 2
+             ranks, every save's host-copy and write ms, the recovery
+             seconds (SliceLost to the end of the first resumed step) and
+             a restore's ms, every rank's peak.
 Then a JSON line for the kernels, the nvidia-smi line, and the result line.
 It imports nothing of jax or of the JAX package.
 """
@@ -446,11 +470,19 @@ PAR_ORACLE = (("resnet50", 16, ("data", "filter", "channel", "spatial",
 # Fig. 3's LM rows run data, filter and df (channel's step is filter's in
 # time, 10.2 s against 10.3 on an H100, and the oracle projects both at
 # 733.28 ms; spatial is measured under the ds rules; the five rows with
-# channel and ds took 271 s on an H100).
-LM_PAR = (("qwen1.5-4b", ("data", "filter", "channel", "df", "ds",
-                          "df_zero1", "df_zero3")),
+# channel and ds took 271 s on an H100). Cut again for the elastic phase:
+# the Qwen's channel and ds tables do not train here (channel's 2 steps
+# take filter's time, 10.2 against 10.3 s a step; ds's 9.2 s a step), so
+# the Qwen's attention under channel and ds runs on the CPU only, on the
+# smoke LMs of tests/test_torch_lm_parallel.py; Mamba-2 780m keeps all
+# five. Fig. 3's LM rows measure each point over 2 steps after 1 warm-up
+# (LM_PAR_ORACLE_STEPS) where validate takes 4 after 2 (6 steps took 73 s
+# of the three rows' 166 under filter on an H100).
+LM_PAR = (("qwen1.5-4b", ("data", "filter", "df", "df_zero1",
+                          "df_zero3")),
           ("mamba2-780m", ("data", "filter", "channel", "df", "ds")))
 LM_PAR_ORACLE = ("qwen1.5-4b", ("data", "filter", "df"))
+LM_PAR_ORACLE_STEPS = dict(iters=2, warmup=1)
 # The lm-pipeline phase on the same spawn, the ranks as the stages of the
 # (1, PAR_RANKS) regrid: (arch, requested S, ((schedule, interleaved v),
 # ...)) at LM_PIPELINE_SHAPE (layers, global batch, seq), 2 SGD steps a
@@ -654,6 +686,12 @@ SHAPES_KIND = {"prefill_32k": "prefill", "decode_32k": "decode"}
 # bf16 at LM_TRAIN_SHAPE (its checkpoint ~9.4 GB: the embedding and the
 # head, and AdamW's two fp32 moments)
 CKPT_LM_LAYERS = 2
+# elastic: (arch, global batch, steps, checkpoint every, the step before
+# which torus dim 0 dies) on PAR_RANKS ranks sharing the card over gloo, a
+# (2, 2) torus whose model axis may ring only in dim 1 (the [oracle]
+# cluster's levels and compute)
+ELASTIC = ("resnet50", BATCH, 4, 2, 3)
+ELASTIC_TORUS = ("2x2", "1")
 
 
 def fail(msg: str):
@@ -1723,7 +1761,7 @@ def _lm_parallel_rank(mesh) -> dict:
     t0 = time.perf_counter()
     pts = validate(model, cfg.model, batch, ShardingCtx(dev, mesh=mesh),
                    list(strategies), flops_per_sample=fps, B=batch_size,
-                   S=seq)
+                   S=seq, **LM_PAR_ORACLE_STEPS)
     out["fig3"] = (pts, time.perf_counter() - t0)
     out["peaks"]["fig3"] = torch.cuda.max_memory_allocated(dev)
     del model, batch
@@ -3107,6 +3145,190 @@ def phase_ckpt(dev):
           flush=True)
 
 
+def _elastic_rank(mesh, cluster_json: str, root: str) -> dict:
+    """One rank of the elastic phase (14 of the docstring): the baseline
+    through launch.train --elastic, the chaos run through run_elastic with
+    torus dim 0 lost, the planned continuation on the survivors; the
+    comparisons run on the survivors, where the states are."""
+    from repro_torch.api import Oracle
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.cluster import Torus
+    from repro_torch.runtime.elastic import (planned_continuation,
+                                             run_elastic, whole_params)
+    from repro_torch.runtime.fault_tolerance import SliceLost
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    arch, batch, steps, every, kill_at = ELASTIC
+    dev = mesh.device
+    out = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    base = train.main(
+        ["--arch", arch, "--device", "cuda", "--backend", "gloo", "--batch",
+         str(batch), "--steps", str(steps), "--ckpt-every", str(every),
+         "--log-every", "100", "--strategy", "auto", "--elastic",
+         "--ckpt-dir", f"{root}/base", "--cluster", cluster_json,
+         "--topology", ELASTIC_TORUS[0], "--model-dims", ELASTIC_TORUS[1]])
+    out["base"] = {k: base.get(k) for k in ("losses", "step_s", "plan",
+                                            "mesh", "events", "peak_bytes")}
+    out["base"]["saves"] = base["ckpt_saves"]
+    out["base"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    cfg = get_config(arch)
+    topo = Torus.parse(*ELASTIC_TORUS)
+    cluster = dataclasses.replace(ClusterSpec.from_json(cluster_json),
+                                  topology=topo)
+    ses = Oracle(cfg, "train_4k", cluster, batch=batch, seq=128)
+    data_cfg = train.data_config_for(cfg.model, batch, 128, 0)
+    opt = OptimizerConfig(lr=3e-3)        # the trainer's
+    kw = dict(device="cuda", seed=0, cell_kw=dict(q_chunk=128))
+    marks, traj, step_s, meshes = {}, {}, {}, []
+
+    def kill(step):
+        if step == kill_at and "lost" not in marks:
+            marks["lost"] = time.perf_counter()
+            raise SliceLost(step, dim=0, reason="injected slice death")
+
+    def on_metrics(s, m):
+        traj[s], step_s[s] = float(m["loss"]), m["step_s"]
+        if "bound" in marks and "first" not in marks:
+            marks["first"] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ckpt = Checkpointer(f"{root}/chaos", mesh=mesh)
+    state, step, events = run_elastic(
+        ses, data_cfg, ckpt, n_steps=steps, mesh=mesh, opt=opt,
+        ckpt_every=every, straggler_patience=3, inject=kill,
+        on_metrics=on_metrics,
+        on_event=lambda ev: marks.setdefault("bound", time.perf_counter()),
+        on_bind=lambda b: meshes.append((b.plan, b.mesh)), **kw)
+    out["chaos"] = {"traj": traj, "step_s": step_s, "events": events,
+                    "step": step, "left_out": state is None,
+                    "seconds": time.perf_counter() - t0,
+                    "peak": torch.cuda.max_memory_allocated(dev),
+                    "saves": ckpt.saves, "plans": [p for p, _ in meshes],
+                    "marks": {k: v - marks["lost"] for k, v in marks.items()}}
+    params = None if state is None else whole_params(state, meshes[-1][1])
+    state = None
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ref = planned_continuation(
+        ses.with_cluster(cluster.degraded(dim=0)), mesh, 2, data_cfg, opt,
+        steps, ckpt=Checkpointer(f"{root}/base/{arch}"), step=every, **kw)
+    if ref is not None:
+        whole = ref.pop("params")
+        out["planned"] = dict(
+            ref, params_equal=all(torch.equal(params[k], v)
+                                  for k, v in whole.items()),
+            params_max_abs_diff=max(float((params[k] - v).abs().max())
+                                    for k, v in whole.items()),
+            seconds=time.perf_counter() - t0)
+        del whole
+    del params, ref
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _report_elastic(results, seconds: float) -> None:
+    """Prints and gates the elastic phase (14 of the docstring)."""
+    from repro_torch.core.cluster import Torus
+    arch, batch, steps, every, kill_at = ELASTIC
+    r0 = results[0]
+    base, chaos, planned = r0["base"], r0["chaos"], r0["planned"]
+    print(f"[elastic] {arch} batch {batch}, fp32, AdamW, {PAR_RANKS} ranks "
+          f"sharing the card over gloo, torus {ELASTIC_TORUS[0]} (model "
+          f"dims {ELASTIC_TORUS[1]}), checkpoint every {every}, torus dim 0 "
+          f"lost before step {kill_at} of {steps}; cuDNN deterministic",
+          flush=True)
+    print(f"[elastic] plan before (launch.train --strategy auto --elastic, "
+          f"p={PAR_RANKS}): {base['plan'].describe()} mesh={base['mesh']}",
+          flush=True)
+    events = chaos["events"]
+    if len(events) != 1:
+        fail(f"[elastic] events {events}: one expected")
+    ev = events[0]
+    print(f"[elastic] plan after (re-tuned on the degraded cluster, p="
+          f"{ev.p_after}): {chaos['plans'][-1].describe()} (planned "
+          f"continuation's: {planned['plan'].describe()}); event "
+          f"{ev}", flush=True)
+    b_ms = [v * 1e3 for v in base["step_s"]]
+    c_ms = {s: v * 1e3 for s, v in sorted(chaos["step_s"].items())}
+    p_ms = {s: v * 1e3 for s, v in sorted(planned["step_s"].items())}
+    print(f"[elastic] ms/step on {PAR_RANKS} ranks (baseline, steps 0-"
+          f"{steps - 1}): {','.join(f'{v:.6g}' for v in b_ms)}; on "
+          f"{ev.p_after} ranks (chaos run, steps {ev.resumed_from}-"
+          f"{steps - 1}): "
+          f"{','.join(f'{v:.6g}' for s, v in c_ms.items() if s >= ev.resumed_from)}"
+          f"; planned continuation: "
+          f"{','.join(f'{v:.6g}' for v in p_ms.values())}", flush=True)
+    for what, saves in (("baseline", base["saves"]),
+                        ("chaos", chaos["saves"])):
+        for sv in saves:
+            print(f"[elastic] {what} save step={sv['step']} "
+                  f"{'blocking' if sv['blocking'] else 'async'}: "
+                  f"host_copy_ms={sv['copy_s'] * 1e3:.6g} write_ms="
+                  f"{sv.get('write_s', float('nan')) * 1e3:.6g} "
+                  f"bytes_on_disk={sv.get('bytes')}", flush=True)
+    mk = chaos["marks"]
+    print(f"[elastic] recovery_s={mk['first']:.6g} (SliceLost → end of the "
+          f"first resumed step): rebind_s={mk['bound']:.6g} (wait, "
+          f"re-tune, the survivors' groups, the new cell, the restore) + "
+          f"first_step_s={mk['first'] - mk['bound']:.6g}; the planned "
+          f"continuation's restore of step {every} onto the {ev.p_after} "
+          f"ranks: restore_ms={planned['restore_s'] * 1e3:.6g}", flush=True)
+    print(f"[elastic] peak bytes per rank (max_memory_allocated): baseline "
+          f"{base['peak_bytes']}; chaos run "
+          f"{[r['chaos']['peak'] for r in results]} (ranks "
+          f"{[i for i, r in enumerate(results) if r['chaos']['left_out']]} "
+          f"left out)", flush=True)
+    traj = chaos["traj"]
+    prefix = [traj[s] == base["losses"][s] for s in range(ev.resumed_from)]
+    suffix = [traj[s] == planned["losses"][s]
+              for s in range(ev.resumed_from, steps)]
+    print(f"[elastic] losses baseline={base['losses']} chaos="
+          f"{[traj[s] for s in sorted(traj)]} planned={planned['losses']}; "
+          f"prefix equal bit for bit={all(prefix)}, suffix={all(suffix)}, "
+          f"final parameters equal={planned['params_equal']} (max abs diff "
+          f"{planned['params_max_abs_diff']:.3g})", flush=True)
+    degraded = Torus.parse(*ELASTIC_TORUS).without_slice(0)
+    p1, p2 = ev.mesh_shape
+    valid = bool(degraded.split_mask(ev.p_after, p1, p2, ev.strategy))
+    if not (all(prefix) and all(suffix) and planned["params_equal"]):
+        fail(f"[elastic] recovery is not the planned reshape bit for bit: "
+             f"prefix {prefix}, suffix {suffix}, parameters equal "
+             f"{planned['params_equal']}")
+    if (ev.p_before, ev.p_after, ev.resumed_from) != (PAR_RANKS, 2, every) \
+            or not valid or p1 * p2 != 2:
+        fail(f"[elastic] event {ev} (valid on {degraded}: {valid})")
+    left = [i for i, r in enumerate(results) if r["chaos"]["left_out"]]
+    if left != [2, 3] or any(r["chaos"]["events"] != events
+                             for r in results):
+        fail(f"[elastic] ranks left out {left}; events per rank "
+             f"{[r['chaos']['events'] for r in results]}")
+    print(f"[elastic] phase wall time {seconds:.4g} s (baseline "
+          f"{base['seconds']:.4g}, chaos {chaos['seconds']:.4g}, planned "
+          f"{planned['seconds']:.4g})", flush=True)
+
+
+def phase_elastic(cluster_json: str):
+    """The elastic runtime on the card (14 of the docstring): PAR_RANKS
+    ranks share it in a spawn of their own."""
+    from repro_torch.launch.spawn import run_ranks
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    atexit.register(shutil.rmtree, root, True)
+    results = run_ranks(_elastic_rank, PAR_RANKS, cluster_json, root,
+                        backend="gloo", device="cuda", model=PAR_MODEL,
+                        timeout_s=600)
+    _report_elastic(results, time.perf_counter() - t0)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 class _FirstLogits(Engine):
     """The engine, keeping the logits (vocab,) at the first generated
     token of the requests in ``keep``."""
@@ -3250,6 +3472,7 @@ def main():
     phase_auto(dev, cluster, cluster_json)
     phase_api(dev, ses, cluster_json)
     phase_ckpt(dev)
+    phase_elastic(cluster_json)
     # rmsnorm runs on both LM serving paths and the engine, on one card and
     # across ranks: its launches are the four runs' sum
     rms["launches"] = qwen[0] + mamba[0] + phase_engine(dev, hbm_bw) \

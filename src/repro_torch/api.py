@@ -36,6 +36,7 @@ unless the caller asks for the CPU; there is no fallback). Not ported:
 CLI:  python -m repro_torch.api --parity      # session ↔ direct parity gate
       python -m repro_torch.api --smoke       # project → tune → build, and
                                               # one step of the built cell
+      python -m repro_torch.api --chaos [--device cpu]   # elastic smoke
       python -m repro_torch.api --calibrate --out fit.json [--device cpu]
       python -m repro_torch.api --serve-tune --arch qwen1.5-4b --p 8
 """
@@ -169,7 +170,7 @@ class Oracle:
         """The cheapest deployable TunedPlan at p, honouring the cluster's
         torus topology."""
         from .core.autotune import plan_for_arch
-        return plan_for_arch(self.arch_cfg, self.shape.name, p,
+        return plan_for_arch(self.arch_cfg, self.shape, p,
                              cluster=self.cluster, cfg=self.cfg,
                              stats=self.stats, smoke=self.smoke,
                              mem_cap=self.mem_cap, switches=switches,
@@ -361,6 +362,159 @@ def _parity() -> int:
     return 0
 
 
+# the chaos smoke: a tiny fp32 LM, global batch B of S tokens, N steps, a
+# checkpoint every EVERY, torus dim 0 lost before step KILL, on RANKS ranks
+CHAOS = dict(V=64, D=32, L=2, B=8, S=32, N=16, KILL=10, EVERY=4, RANKS=4)
+
+
+def chaos_setup():
+    """(session, data config, optimizer config) of the chaos smoke: a tiny
+    uniform fp32 LM (the reference's, with 4 kv heads: the port's
+    attention takes no grouped kv heads) on the host cluster with a (2, 2)
+    torus whose model axis may ring only in dim 1, AdamW without ZeRO-1
+    (each plan sets its own)."""
+    from dataclasses import replace
+
+    import torch
+
+    from .configs.base import ArchConfig, ShapeSpec
+    from .data.pipeline import DataConfig
+    from .models.transformer import LMConfig
+    from .nn.attention import AttentionConfig
+    from .nn.ffn import FFNConfig
+    from .optim.optimizers import OptimizerConfig
+    V, D, L, B, S = (CHAOS[k] for k in "VDLBS")
+    f32 = torch.float32
+    mc = LMConfig(name="t", vocab=V, d_model=D, n_layers=L,
+                  attn=AttentionConfig(D, 4, 4, 8, dtype=f32),
+                  ffn=FFNConfig(D, 2 * D, dtype=f32), dtype=f32)
+    acfg = ArchConfig(name="chaos-smoke", family="lm", model=mc,
+                      smoke_model=mc, source="chaos", strategy="df")
+    cluster = replace(ClusterSpec.of("host"),
+                      topology=Torus((2, 2), model_dims=(1,)))
+    ses = Oracle(acfg, ShapeSpec("train_tiny", S, B, "train"), cluster,
+                 batch=B, seq=S)
+    return ses, DataConfig("lm", batch=B, seq_len=S, vocab=V), \
+        OptimizerConfig(lr=1e-2, name="adamw", zero1=False)
+
+
+def _chaos_rank(mesh, device: str) -> str | None:
+    """One rank of the chaos smoke (see ``_chaos``); rank 0 returns its
+    summary line."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from .checkpoint import Checkpointer
+    from .runtime.elastic import (planned_continuation, run_elastic,
+                                  whole_params)
+    from .runtime.fault_tolerance import SliceLost
+    N, KILL, EVERY = CHAOS["N"], CHAOS["KILL"], CHAOS["EVERY"]
+    ses, data_cfg, opt = chaos_setup()
+    box = [tempfile.mkdtemp(prefix="chaos_") if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, mesh.ranks[0],
+                               group=mesh.group(tuple(mesh.shape)).pg)
+    root = box[0]
+
+    def run(inject, where):
+        traj, meshes = {}, []
+        state, step, events = run_elastic(
+            ses, data_cfg, Checkpointer(f"{root}/{where}", keep=10,
+                                        mesh=mesh),
+            n_steps=N, mesh=mesh, device=device, opt=opt, ckpt_every=EVERY,
+            inject=inject, seed=0, straggler_patience=None,
+            on_bind=lambda b: meshes.append(b.mesh),
+            on_metrics=lambda s, m: traj.__setitem__(s, float(m["loss"])))
+        if state is None:
+            return traj, events, None
+        assert step == N, (step, N)
+        return traj, events, whole_params(state, meshes[-1])
+
+    fired = set()
+
+    def kill(step):
+        if step == KILL and step not in fired:
+            fired.add(step)
+            raise SliceLost(step, dim=0, reason="injected slice death")
+
+    traj_a, ev_a, _ = run(None, "a")          # uninterrupted baseline
+    traj_b, ev_b, params_b = run(kill, "b")   # chaos run
+    assert ev_a == [] and len(ev_b) == 1, (ev_a, ev_b)
+    ev = ev_b[0]
+    p = CHAOS["RANKS"]
+    assert (ev.p_before, ev.p_after) == (p, p // 2), ev
+    # the re-tuned plan is valid on the shrunken topology
+    degraded = ses.cluster.degraded(dim=0)
+    assert degraded.topology.size == p // 2
+    p1, p2 = ev.mesh_shape
+    assert p1 * p2 == p // 2, ev
+    assert bool(degraded.topology.split_mask(p // 2, p1, p2, ev.strategy)), ev
+    resumed = ev.resumed_from
+    assert 0 < resumed <= KILL and resumed % EVERY == 0, ev
+    # prefix: bit-exact vs the uninterrupted run (same mesh, same plan)
+    for s in range(resumed):
+        assert traj_b[s] == traj_a[s], (s, traj_b[s], traj_a[s])
+    # suffix: bit-exact vs a PLANNED degraded continuation from the
+    # baseline's own checkpoint — recovery ≡ planned reshape
+    ref = planned_continuation(
+        ses.with_cluster(degraded), mesh, p // 2, data_cfg, opt, N,
+        ckpt=Checkpointer(f"{root}/a"), step=resumed, device=device, seed=0)
+    line = None
+    if ref is not None:
+        for s in range(resumed, N):
+            assert traj_b[s] == ref["losses"][s], (s, traj_b[s],
+                                                   ref["losses"][s])
+        for k, v in ref["params"].items():
+            assert torch.equal(params_b[k], v), k
+        line = (f"repro_torch.api --chaos OK (slice death @ step {KILL}: p "
+                f"{p}→{p // 2} on {degraded.topology}, re-tuned "
+                f"{ev.strategy} {p1}x{p2}, resumed @ {resumed}; trajectory "
+                f"+ final params bit-exact vs planned reshape)")
+    # every rank is done with the directory before rank 0 removes it
+    dist.barrier(group=mesh.group(tuple(mesh.shape)).pg)
+    if mesh.rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return line
+
+
+def _chaos(device: str) -> int:
+    """Chaos smoke (DESIGN.md §12): kill a torus slice mid-run and prove
+    the elastic loop end to end — the tuner re-plans on the surviving
+    ClusterSpec, the checkpoint restores onto the survivors' mesh, and the
+    resumed loss trajectory is bit-exact vs an uninterrupted baseline
+    (prefix) and vs a clean continuation planned on the degraded machine
+    (suffix), final parameters included: recovery ≡ planned reshape, bit
+    for bit.
+
+    Self-contained (no tests/ import): the tiny LM of ``chaos_setup`` on
+    4 ranks over gloo on ``device`` (4 ranks for the reference's 8 virtual
+    devices), a (2, 2) torus losing dim 0 → a (2)-torus at step 10 of 16.
+    The ranks are this process's world where one is initialised (every
+    rank calls this), else 4 spawned ones (``launch.spawn.run_ranks``).
+    The straggler watch only logs here: a loaded host's slow steps must
+    not reshape the run. The richer scenario matrix lives in
+    tests/test_torch_chaos.py."""
+    import torch.distributed as dist
+
+    from .launch.mesh import make_host_mesh
+    from .launch.spawn import run_ranks
+    if dist.is_initialized():
+        if dist.get_world_size() != CHAOS["RANKS"]:
+            raise ValueError(f"the chaos smoke runs on {CHAOS['RANKS']} "
+                             f"ranks, the world has "
+                             f"{dist.get_world_size()}")
+        line = _chaos_rank(make_host_mesh(backend=dist.get_backend(),
+                                          device=device), device)
+    else:
+        line = run_ranks(_chaos_rank, CHAOS["RANKS"], device,
+                         backend="gloo", device=device, timeout_s=600)[0]
+    if line:
+        print(line, flush=True)
+    return 0
+
+
 def _calibrate(out: str | None, device: str) -> int:
     """Fit the one-device ClusterSpec (the smoke ResNet-50's compute rate on
     ``device``, the host's levels) and write it as JSON."""
@@ -421,11 +575,14 @@ def main(argv=None) -> int:
     ap.add_argument("--calibrate", action="store_true",
                     help="fit a ClusterSpec on one device (its compute)")
     ap.add_argument("--chaos", action="store_true",
-                    help="elastic-training chaos smoke (not ported)")
+                    help="elastic-training chaos smoke: a slice lost on 4 "
+                         "ranks, recovery held bit for bit against a "
+                         "planned reshape")
     ap.add_argument("--out", default=None,
                     help="--calibrate: the fitted ClusterSpec's JSON")
     ap.add_argument("--device", default="cuda",
-                    help="--smoke/--calibrate: 'cuda' (default) or 'cpu'")
+                    help="--smoke/--calibrate/--chaos: 'cuda' (default) or "
+                         "'cpu'")
     ap.add_argument("--serve-tune", action="store_true",
                     help="price the serving sweep and print the cheapest "
                          "plan meeting --slo-ms; exits 1 on an SLO miss")
@@ -448,10 +605,7 @@ def main(argv=None) -> int:
                          "(tpu | paper | host | a ClusterSpec JSON path)")
     args = ap.parse_args(argv)
     if args.chaos:
-        raise NotImplementedError(
-            "the chaos smoke needs the elastic runtime "
-            "(runtime/fault_tolerance.py, runtime/elastic.py), ROADMAP "
-            "queue 1 item 9")
+        return _chaos(args.device)
     if args.serve_tune:
         cluster = (ClusterSpec.from_json(args.cluster)
                    if args.cluster.endswith(".json") else args.cluster)

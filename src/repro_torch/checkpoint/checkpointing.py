@@ -26,7 +26,8 @@ ZeRO-1's optimizer blocks) is gathered whole over the mesh, and only rank
 yields whole arrays: the other ranks join each gather and drop the leaf,
 so the host holds one copy of the state. A blocking save, and ``wait``,
 end at a barrier once the step is committed, so no rank reads the
-directory before it is there. ``restore`` reads one whole leaf at a time
+directory before it is there. ``on(mesh)`` rebinds the store to another
+mesh's ranks (the survivors of a lost slice, ``runtime/elastic.py``). ``restore`` reads one whole leaf at a time
 and copies into each tensor of the skeleton its block (``t.shard_index``),
 in place, so a checkpoint restores onto another mesh or strategy, or onto
 one process.
@@ -79,6 +80,24 @@ def config_hash(obj) -> str:
     return hashlib.sha256(repr(obj).encode()).hexdigest()[:16]
 
 
+def whole_leaf(v: torch.Tensor, mesh) -> torch.Tensor:
+    """A tensor leaf whole: gathered over ``mesh`` where it is one rank's
+    block (``v.place``; every rank of the mesh joins the gather), else the
+    leaf itself, detached."""
+    t = v.detach()                    # (a new tensor: read v's placement)
+    place = getattr(v, "place", None)
+    if mesh is not None and place is not None and any(place):
+        t = Sharded(t, v.global_shape, place, mesh).full()
+    return t
+
+
+def fill_leaf(target: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """``target`` overwritten, in place, by its block of the whole leaf
+    (``target.shard_index``, else all of it)."""
+    target.copy_(whole[getattr(target, "shard_index", ...)])
+    return target
+
+
 def _host(v, mesh, writes: bool) -> tuple[np.ndarray, str] | None:
     """A leaf as a host array (a copy) and the dtype the manifest records:
     whole (gathered over the mesh where it is one rank's block). A rank
@@ -87,10 +106,7 @@ def _host(v, mesh, writes: bool) -> tuple[np.ndarray, str] | None:
     if not isinstance(v, torch.Tensor):
         a = np.asarray(v)
         return (a, str(a.dtype)) if writes else None
-    t = v.detach()                    # (a new tensor: read v's placement)
-    place = getattr(v, "place", None)
-    if mesh is not None and place is not None and any(place):
-        t = Sharded(t, v.global_shape, place, mesh).full()
+    t = whole_leaf(v, mesh)
     if not writes:
         return None
     t = t.to("cpu", copy=True)
@@ -120,8 +136,7 @@ def _load_leaf(npz, manifest: dict, p: str, target, step: int):
     if tuple(whole.shape) != want or whole.dtype != target.dtype:
         raise ValueError(f"checkpoint leaf {p}: {tuple(whole.shape)} "
                          f"{whole.dtype}, the state's {want} {target.dtype}")
-    target.copy_(whole[getattr(target, "shard_index", ...)])
-    return target
+    return fill_leaf(target, whole)
 
 
 class Checkpointer:
@@ -142,6 +157,18 @@ class Checkpointer:
         self._lock = threading.RLock()
         # per save: step, blocking, host-copy seconds, write seconds, bytes
         self.saves: list[dict] = []
+
+    def on(self, mesh) -> "Checkpointer":
+        """This directory's store (its retention, tag and ``saves``) across
+        ``mesh``'s ranks: after a shrink the survivors' barrier and writer
+        are the new mesh's. Every rank of the old mesh calls ``wait``
+        first; only the new mesh's ranks call this."""
+        if self._thread is not None:
+            raise RuntimeError("an async save is in flight: wait() on "
+                               "every rank of the old mesh first")
+        ck = Checkpointer(self.dir, self.keep, self.config_tag, mesh)
+        ck.saves = self.saves
+        return ck
 
     # -- write ------------------------------------------------------------
     def save(self, state, step: int, blocking: bool = True) -> Path:

@@ -6,7 +6,7 @@ lattice; this module turns that into a *deployment decision*: given an
 arch × shape × device count, pick the cheapest point that fits memory and
 return it as a ``TunedPlan`` — strategy, mesh factorization, memory-model
 switches, and the projected bottleneck. ``launch/train.py --strategy auto``
-deploys the plan (``launch.mesh.mesh_for_plan`` shapes its mesh, and
+deploys the plan (``runtime.elastic.bind_plan`` shapes its mesh, and
 ``launch.build.build_cell`` assembles the cell), as ``launch/serve.py
 --strategy auto`` and ``api.Oracle.build`` do, so the oracle is the
 decision-maker, not just a report.
@@ -374,7 +374,7 @@ def stats_for_model(mc, seq: int | None = None):
     return stats_for(mc, seq or 4096)
 
 
-def plan_for_arch(arch_cfg, shape_name: str, p: int, *,
+def plan_for_arch(arch_cfg, shape_name, p: int, *,
                   system=None, cluster: "ClusterSpec | None" = None,
                   smoke: bool = False,
                   mem_cap: float | None = None, switches="all",
@@ -383,7 +383,8 @@ def plan_for_arch(arch_cfg, shape_name: str, p: int, *,
                   cfg: OracleConfig | None = None,
                   stats=None,
                   allow_pipeline: bool | None = None) -> TunedPlan:
-    """Auto-tune a registered arch at one input shape on p PEs.
+    """Auto-tune a registered arch at one input shape (a ``SHAPES`` name or
+    a ``ShapeSpec``) on p PEs.
 
     ``system`` (a SystemModel or a ClusterSpec) defaults to the TPU-v5e
     deployment target (projection mode); the oracle config is one epoch of
@@ -406,7 +407,7 @@ def plan_for_arch(arch_cfg, shape_name: str, p: int, *,
     if cluster is not None:
         system = cluster.system
     mc = arch_cfg.smoke_model if smoke else arch_cfg.model
-    shape = SHAPES[shape_name]
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     if stats is None:
         stats = stats_for_model(mc, shape.seq_len)
     tm = TimeModel(system or TPU_V5E_POD)
@@ -417,7 +418,7 @@ def plan_for_arch(arch_cfg, shape_name: str, p: int, *,
     can_pipe = (shape.kind == "train" and pipeline_supported(mc) is None
                 and allow_pipeline is not False)
     return autotune(stats, tm, cfg, p, mem_cap=mem_cap, switches=switches,
-                    fallback=arch_cfg.strategy_for(shape_name),
+                    fallback=arch_cfg.strategy_for(shape.name),
                     model_width=model_width, model_grid=model_grid,
                     cluster=cluster,
                     allow_remat=arch_cfg.family != "cnn",

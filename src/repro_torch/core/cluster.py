@@ -19,9 +19,10 @@ back into projections. ``ClusterSpec`` owns all four concerns:
     harness output (core/calibration.py) so measured runs close the loop
     back into projections. The port's calibration measures one card
     (p = 1); the multi-rank measurements come with the parallel slice, and
-    ``fitted_from`` reads measurement records from either package. The
-    degraded machine of the elastic runtime (``ClusterSpec.degraded``)
-    comes with that runtime.
+    ``fitted_from`` reads measurement records from either package.
+  * the machine that survives a lost torus slice (``ClusterSpec.degraded``,
+    ``Torus.without_slice``), which the elastic runtime re-tunes on
+    (``runtime/elastic.py``).
 
 Everything here is numpy-only, so the oracle runs without a device.
 """
@@ -208,6 +209,29 @@ class Torus:
         md = tuple(int(x) for x in model_dims.split(",") if x.strip())
         return cls(dims, md)
 
+    def without_slice(self, dim: int = 0, count: int = 1) -> "Torus":
+        """The torus that survives losing ``count`` hyperplanes of ``dim``
+        (slice death: every PE with that coordinate is gone, so the extent
+        shrinks — the surviving machine is still a torus). Dimensions that
+        collapse to extent 1 are dropped and the model-axis placement
+        constraint is re-indexed onto the surviving dimensions; a model
+        dim that vanished leaves the model axis confined to width 1."""
+        if not 0 <= dim < len(self.dims):
+            raise ValueError(f"torus has no dim {dim}: {self.dims}")
+        extent = self.dims[dim] - count
+        if extent < 1:
+            raise ValueError(
+                f"cannot drop {count} slice(s) from dim {dim} of {self}")
+        dims = list(self.dims)
+        dims[dim] = extent
+        keep = ([i for i, e in enumerate(dims) if e > 1]
+                or [int(np.argmax(dims))])
+        remap = {old: new for new, old in enumerate(keep)}
+        md = self.model_dims
+        if md is not None:
+            md = tuple(remap[d] for d in md if d in remap)
+        return Torus(tuple(dims[i] for i in keep), md)
+
 
 # ---------------------------------------------------------------------------
 # Calibration measurements (what fitted_from ingests)
@@ -346,6 +370,21 @@ class ClusterSpec:
         merged = self.oracle_kw()
         merged.update(kw)
         return OracleConfig(B=B, D=D if D is not None else B, **merged)
+
+    def degraded(self, dim: int = 0, count: int = 1) -> "ClusterSpec":
+        """The machine that survives losing ``count`` slices of torus
+        ``dim``: same interconnect levels, compute, and φ/σ tables, with
+        the topology shrunk via ``Torus.without_slice`` (model-axis
+        constraints re-indexed). This is the ClusterSpec the elastic
+        controller re-runs the tuner on (runtime/elastic.py). Without a
+        topology there is no slice structure to shrink — the spec is
+        returned unchanged and the caller shrinks p itself."""
+        if self.topology is None:
+            return self
+        name = (self.name if self.name.endswith("-degraded")
+                else f"{self.name}-degraded")
+        return replace(self, name=name,
+                       topology=self.topology.without_slice(dim, count))
 
     def describe(self) -> str:
         lv = ", ".join(

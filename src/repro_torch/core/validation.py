@@ -103,10 +103,12 @@ class ValidationPoint:
 def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
                  segments: int = 8, schedule: str = "gpipe",
                  virtual_stages: int = 2,
-                 grid: tuple[int, int] | None = None) -> float:
+                 grid: tuple[int, int] | None = None, iters: int = 4,
+                 warmup: int = 2) -> float:
     """Measured per-iteration time of a real train step (SGD, the port's
-    ``make_train_step``) on ``ctx.device``: the median of 4 steps after 2
-    warm-up steps (``time_fn``).
+    ``make_train_step``) on ``ctx.device``: the median of ``iters`` steps
+    after ``warmup`` warm-up steps (``time_fn``; 4 and 2, the
+    reference's).
 
     Without a mesh, "data" at p = 1: the step updates ``model``'s parameters
     in place (the reference starts from a fresh state instead; the time is
@@ -142,7 +144,7 @@ def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
                 f"runs 'data'")
         step = make_train_step(model, opt, ctx)
         return time_fn(step, train_state(model, opt), batch,
-                       device=ctx.device, iters=4, warmup=2)
+                       device=ctx.device, iters=iters, warmup=warmup)
     if strategy in NOT_PORTED:
         raise NotImplementedError(
             f"oracle strategy {strategy!r} is not ported: "
@@ -161,7 +163,7 @@ def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
             segments=segments, schedule=schedule,
             virtual_stages=virtual_stages, block_costs=costs)
         t = time_fn(step, train_state(local, opt), batch, device=ctx.device,
-                    iters=4, warmup=2)
+                    iters=iters, warmup=warmup)
         return _slowest(t, mesh)
     mesh = ctx.mesh
     if strategy == "summa":
@@ -178,14 +180,15 @@ def measure_step(model, batch, ctx: ShardingCtx, strategy: str = "data", *,
     local = sharded_copy(model, ctx_s)
     step = make_train_step(local, opt, ctx_s)
     t = time_fn(step, train_state(local, opt), shard_batch(batch, ctx_s),
-                device=ctx.device, iters=4, warmup=2)
+                device=ctx.device, iters=iters, warmup=warmup)
     return _slowest(t, mesh)
 
 
 def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
              flops_per_sample: float, B: int, S: int = 128,
              oracle_cfg_kw: dict | None = None, cluster=None,
-             grid: tuple[int, int] | None = None) -> list[ValidationPoint]:
+             grid: tuple[int, int] | None = None, iters: int = 4,
+             warmup: int = 2) -> list[ValidationPoint]:
     """Measure + project each strategy at p = the mesh's rank count (1
     without one) on ``ctx.device``; paper Fig. 3. ``S``: an LM's tokens a
     sequence, for its layer stats (a CNN's ignore it).
@@ -204,7 +207,9 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
     ``oracle_cfg_kw``: ``OracleConfig`` keywords the projections take
     (a session's overrides); the cluster's φ/σ tables fill the rest.
     ``grid``: (p2r, p2c) for "summa", measured on that grid of the same
-    world and projected at the matching lattice point."""
+    world and projected at the matching lattice point. ``iters`` and
+    ``warmup``: each point's measured and warm-up steps
+    (``measure_step``)."""
     stats = stats_for(model_cfg, S)
     p = ctx.mesh.size if ctx.sharded else 1
     if cluster is None:
@@ -238,7 +243,7 @@ def validate(model, model_cfg, batch, ctx: ShardingCtx, strategies, *,
                 continue
             cfg_s = replace(cfg, segments=clip_segments(B, cfg.segments))
         meas = measure_step(model, batch, ctx, s, segments=cfg_s.segments,
-                            grid=grid)
+                            grid=grid, iters=iters, warmup=warmup)
         pkw = {}
         if s in ("df", "ds", "ep"):
             pkw = dict(p1=ctx.mesh.shape["data"], p2=ctx.mesh.shape["model"])

@@ -38,6 +38,7 @@ from typing import Any
 import torch
 
 from ..configs.base import SHAPES, ArchConfig, ShapeSpec
+from ..data.pipeline import Loader
 from ..models.cnn import (CosmoFlow, CosmoFlowConfig, ResNet, ResNetConfig,
                           VGG, VGGConfig)
 from ..models.transformer import LMConfig, TransformerLM
@@ -90,6 +91,22 @@ def shard_batch(batch: dict, ctx: ShardingCtx) -> dict:
     return {k: Sharded.of(v, placement(ctx.mesh, ctx.pspec(
         batch_axes(k, v.dim()), v.shape)), ctx.mesh)
         for k, v in batch.items()}
+
+
+class CellLoader:
+    """The (seed, step)-addressable batches of ``data_cfg`` as a built
+    train cell's step takes them: drawn whole on the cell's device, then
+    this rank's blocks (``shard_batch``), or whole for a pipeline (its
+    first stage takes the microbatches)."""
+
+    def __init__(self, cell: "BuiltCell", data_cfg):
+        self.loader = Loader(data_cfg, cell.ctx.device)
+        self.ctx = cell.ctx
+        self.whole = "pipeline" in cell.meta
+
+    def batch_at(self, step: int) -> dict:
+        batch = self.loader.batch_at(step)
+        return batch if self.whole else shard_batch(batch, self.ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,16 @@ world out as the ("data", "model_r", "model_c") grid of the 2-D SUMMA
 strategy (``parallel/summa.py``), the counterpart of the reference's
 ``make_grid_mesh(p1, p2r, p2c)``: rank ``r`` at row-major coordinates
 again, and a group for each axis and each ordered tuple of axes.
-``mesh_for_plan`` shapes the mesh an auto-tuned plan deploys on.
+A mesh may also cover an ordered subset of the world: ``Mesh.shrink``
+lays the first p' ranks out as a new grid, the survivors of a lost slice
+(``runtime/elastic.py``); at the mesh's own size it is the mesh an
+auto-tuned plan deploys on (``runtime.elastic.bind_plan`` shrinks to the
+plan's ``mesh_spec()``). Its whole group is a ``new_group`` of those
+ranks, not WORLD, and so is every axis group; ``Group.ranks`` keeps
+global ranks (what ``dist.broadcast`` and the point-to-point calls take)
+and ``Mesh.rank`` is the index inside the mesh. The serving entry point
+(``launch/serve.py``) reads the world's size and rank directly: serving is
+not elastic, and its mesh is always the world.
 
 The transport is an argument, never a fallback:
 
@@ -62,12 +71,15 @@ class Group:
 
 
 class Mesh:
-    """The world as a grid over ``axes`` (("data", "model") unless told
-    otherwise); ``shape`` maps each axis to its extent, as a JAX mesh's
-    does."""
+    """The world, or an ordered subset of its ranks (``ranks``, increasing:
+    the survivors of a lost slice, ``shrink``), as a grid over ``axes``
+    (("data", "model") unless told otherwise); ``shape`` maps each axis to
+    its extent, as a JAX mesh's does. ``rank`` is this rank's index in the
+    grid; every ``Group`` names its members by their global ranks, which
+    ``torch.distributed`` takes."""
 
     def __init__(self, *dims: int, backend: str, device: torch.device,
-                 axes: tuple[str, ...] = AXES):
+                 axes: tuple[str, ...] = AXES, ranks=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: the port takes "
                              f"{BACKENDS}")
@@ -76,38 +88,27 @@ class Mesh:
                                "init_from_env (torchrun sets its variables)")
         if len(dims) != len(axes):
             raise ValueError(f"extents {dims} for axes {axes}")
-        world, rank = dist.get_world_size(), dist.get_rank()
-        if math.prod(dims) != world:
-            raise ValueError(f"mesh {'x'.join(map(str, dims))} does not "
-                             f"cover the world of {world} ranks")
+        ranks = _ranks(dims, ranks)
+        if dist.get_rank() not in ranks:
+            raise ValueError(f"rank {dist.get_rank()} is not one of the "
+                             f"mesh's ranks {list(ranks)}")
         if dist.get_backend() != backend:
             raise ValueError(f"the world runs {dist.get_backend()}, not "
                              f"{backend}")
         self.axes = tuple(axes)
         self.shape = dict(zip(self.axes, dims))
-        self.size = world
-        self.rank = rank
+        self.ranks = ranks
+        self.size = len(ranks)
+        self.rank = ranks.index(dist.get_rank())
         self.backend = backend
         self.device = device
         coords = list(itertools.product(*(range(n) for n in dims)))
-        self._coords = dict(zip(self.axes, coords[rank]))
+        self._coords = dict(zip(self.axes, coords[self.rank]))
         stage = backend == "gloo" and device.type == "cuda"
-        self._groups = {self.axes: Group(dist.group.WORLD,
-                                         tuple(range(world)), rank, stage)}
-        for n in range(1, len(self.axes)):
-            for sub in itertools.combinations(range(len(self.axes)), n):
-                # the ranks that share every other coordinate, one new_group
-                # each (every rank makes every group, in the same order)
-                parts: dict[tuple, list[int]] = {}
-                for r, c in enumerate(coords):
-                    rest = tuple(c[i] for i in range(len(dims))
-                                 if i not in sub)
-                    parts.setdefault(rest, []).append(r)
-                for ranks in parts.values():
-                    pg = dist.new_group(ranks)
-                    if rank in ranks:
-                        self._groups[tuple(self.axes[i] for i in sub)] = \
-                            Group(pg, tuple(ranks), ranks.index(rank), stage)
+        self._groups = {
+            tuple(self.axes[i] for i in sub): Group(
+                pg, members, members.index(dist.get_rank()), stage)
+            for sub, pg, members in _new_groups(dims, ranks)}
         self._regrids = {(self.axes, tuple(dims)): self}
 
     @property
@@ -133,20 +134,90 @@ class Mesh:
         key = (axes, tuple(int(n) for n in dims))
         if key not in self._regrids:
             mesh = Mesh(*key[1], backend=self.backend, device=self.device,
-                        axes=axes)
+                        axes=axes, ranks=self.ranks)
             mesh._regrids = self._regrids
             self._regrids[key] = mesh
         return self._regrids[key]
 
     def regrid(self, data: int, model: int) -> "Mesh":
-        """The same world as a (data, model) grid of another split, made on
+        """The same ranks as a (data, model) grid of another split, made on
         the first call for that split and kept (a new grid makes process
         groups: every rank calls this, in the same order)."""
         return self._regridded((data, model), AXES)
 
+    def shrink(self, *dims: int, axes: tuple[str, ...] = AXES
+               ) -> "Mesh | None":
+        """The first prod(dims) ranks of this mesh as a grid of ``dims``
+        over ``axes`` (the survivors of a lost slice: the reference
+        re-meshes on ``devices[:p]``, so rank 0 always survives), or None
+        on a rank outside it. Every rank of this mesh calls it, in the
+        same order: ``new_group`` is a call every rank still running makes
+        (a rank left out makes each group with the others and gets none);
+        ranks that left earlier are members of no later group. All ranks:
+        ``regrid``'s grid, kept."""
+        n = math.prod(dims)
+        if not 1 <= n <= self.size:
+            raise ValueError(f"a grid of {dims} over a mesh of {self.size} "
+                             f"ranks")
+        if n == self.size:
+            return self._regridded(tuple(dims), tuple(axes))
+        ranks = self.ranks[:n]
+        if dist.get_rank() in ranks:
+            return Mesh(*dims, backend=self.backend, device=self.device,
+                        axes=tuple(axes), ranks=ranks)
+        for _ in _new_groups(dims, ranks):
+            pass
+        return None
+
     def __repr__(self):
         dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
-        return f"Mesh({dims}, backend={self.backend}, device={self.device})"
+        some = "" if self.ranks == tuple(range(dist.get_world_size())) \
+            else f", ranks={list(self.ranks)}"
+        return (f"Mesh({dims}, backend={self.backend}, "
+                f"device={self.device}{some})")
+
+
+def _ranks(dims, ranks) -> tuple[int, ...]:
+    """The global ranks of a grid of ``dims``: the world's, or ``ranks``
+    (increasing, so every group lists its members in the order
+    ``new_group`` ranks them)."""
+    world = dist.get_world_size()
+    ranks = tuple(range(world)) if ranks is None else tuple(
+        int(r) for r in ranks)
+    if math.prod(dims) != len(ranks):
+        raise ValueError(f"mesh {'x'.join(map(str, dims))} does not cover "
+                         f"its {len(ranks)} ranks")
+    if list(ranks) != sorted(set(ranks)) or ranks[0] < 0 or \
+            ranks[-1] >= world:
+        raise ValueError(f"mesh ranks {list(ranks)}: increasing ranks of "
+                         f"the world of {world}")
+    return ranks
+
+
+def _new_groups(dims, ranks):
+    """Makes the process group of every ordered subset of a grid's axes
+    over global ``ranks`` (rank ``ranks[i]`` at row-major position i):
+    the ranks that share every other coordinate, one ``new_group`` each,
+    the whole grid's first (WORLD where it is the world). Every rank that
+    makes them calls this with the same arguments, in the same order;
+    yields (axis indices, process group, global members) of the groups
+    this rank is in."""
+    coords = list(itertools.product(*(range(n) for n in dims)))
+    me = dist.get_rank()
+    whole = dist.group.WORLD if ranks == tuple(range(
+        dist.get_world_size())) else dist.new_group(list(ranks))
+    if me in ranks:
+        yield tuple(range(len(dims))), whole, ranks
+    for n in range(1, len(dims)):
+        for sub in itertools.combinations(range(len(dims)), n):
+            parts: dict[tuple, list[int]] = {}
+            for i, c in enumerate(coords):
+                rest = tuple(c[j] for j in range(len(dims)) if j not in sub)
+                parts.setdefault(rest, []).append(ranks[i])
+            for members in parts.values():
+                pg = dist.new_group(members)
+                if me in members:
+                    yield sub, pg, tuple(members)
 
 
 def make_grid_mesh(mesh: Mesh, p1: int, p2r: int, p2c: int) -> Mesh:
@@ -190,23 +261,6 @@ def make_host_mesh(n: int | None = None, model: int | None = None, *,
     data, model = default_split(n, model)
     return Mesh(data, model, backend=backend,
                 device=rank_device(backend, device))
-
-
-def mesh_for_plan(plan, *, backend: str,
-                  device: str | torch.device) -> Mesh:
-    """The mesh an auto-tuned ``core.autotune.TunedPlan`` deploys on, over
-    the initialised world (counterpart of the reference's
-    ``mesh_for_plan``): the (data, model_r, model_c) grid of
-    ``plan.mesh_spec()`` for a summa plan (``make_grid_mesh``), the
-    (data, model) = (p1, p2) mesh otherwise."""
-    if plan.p != dist.get_world_size():
-        raise ValueError(f"the plan is for p={plan.p}, the world has "
-                         f"{dist.get_world_size()} ranks")
-    mesh = make_host_mesh(model=plan.p2, backend=backend, device=device)
-    shape, axes = plan.mesh_spec()
-    if axes == GRID_AXES:
-        return make_grid_mesh(mesh, *shape)
-    return mesh
 
 
 def init_from_env(backend: str, timeout=None) -> None:

@@ -57,9 +57,10 @@ pipeline schedule) for the world's size (1 without a world) on the machine
 the cluster flags describe (``--system``, default ``host``; ``--cluster``
 takes a fitted ``ClusterSpec`` JSON), at ``--batch`` and ``--seq``; rank 0
 prints ``TunedPlan.describe()``. The plan is then deployed: its rules
-table (``exec_strategy("train")``) on the mesh ``launch.mesh.mesh_for_plan``
-shapes (the (data, model_r, model_c) grid for a summa plan), ZeRO-1 from
-its switch, its remat for an LM (each block under
+table (``exec_strategy("train")``) through ``runtime.elastic.bind_plan``,
+the one place a plan becomes a mesh and a cell (``Mesh.shrink`` to the
+plan's grid: the (data, model_r, model_c) grid for a summa plan), ZeRO-1
+from its switch, its remat for an LM (each block under
 ``torch.utils.checkpoint``), and for a pipeline plan its schedule, segment
 count and virtual stages (``--schedule``/``--segments`` given explicitly
 override them, as in the reference). A plan the port cannot run raises and
@@ -83,8 +84,22 @@ run repeats the straight run's losses bit for bit. Without ``--ckpt-dir``
 the trainer writes and resumes nothing (the reference defaults to
 ``checkpoints``; in the port a default directory would make every run
 with the same arch resume the last one's state, across the test suite's
-concurrent runs too). Restart-on-failure, the straggler watch and
-``--elastic`` are not ported (ROADMAP queue 1 item 9).
+concurrent runs too). The loop runs through
+``runtime.fault_tolerance.run_with_recovery``, as the reference's does: with
+``--ckpt-dir`` a failing step restores the latest complete checkpoint and
+replays; without it a failure raises. Its straggler watch only logs here.
+
+``--elastic`` runs ``runtime.elastic.run_elastic`` on the world's ranks,
+as the reference's ``_main_elastic`` does (it needs ``--ckpt-dir``): an
+``Oracle`` session on the cluster flags' machine tunes for the ranks and
+deploys the plan; on a lost slice, or ``--straggler-patience`` consecutive
+straggler alerts, it degrades the ClusterSpec, re-tunes, lays the first p'
+ranks out as the new plan's mesh, restores the checkpoint onto it and
+resumes. A rank left out returns with its state released and joins no
+collective after that: its peak memory is its own, the survivors gather
+theirs over the final mesh. ``--strategy``,
+``--model-axis`` and the pipeline flags do not apply: the plan decides,
+and a pipeline plan is barred.
 """
 from __future__ import annotations
 
@@ -101,17 +116,18 @@ from ..configs.base import ShapeSpec
 from ..core.autotune import TunedPlan, autotune, stats_for_model
 from ..core.cluster import ClusterSpec, add_cluster_args
 from ..core.oracle import TimeModel
-from ..data.pipeline import DataConfig, Loader
+from ..data.pipeline import DataConfig
 from ..models.cnn import CosmoFlowConfig, ResNetConfig, VGGConfig
 from ..models.transformer import LMConfig
-from ..nn.module import ShardingCtx
+from ..nn.module import resolve_device
 from ..optim.optimizers import OptimizerConfig
 from ..parallel.schedules import (SCHEDULE_NAMES, gather_pipeline_state,
                                   pipeline_block_count, pipeline_supported)
 from ..parallel.summa import summa_supported
+from ..runtime.fault_tolerance import run_with_recovery
 from ..training.steps import train_state
-from .build import build_cell, shard_batch
-from .mesh import init_from_env, make_host_mesh, mesh_for_plan
+from .build import CellLoader, build_cell
+from .mesh import init_from_env, make_host_mesh
 
 # the rule tables the CNNs run under, and the LMs (the others raise)
 CNN_STRATEGIES = ("data", "spatial", "filter", "channel", "df", "ds")
@@ -180,10 +196,23 @@ def main(argv=None, cfg=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50,
                     help="steps between async checkpoints (and one at the "
                          "end)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="oracle-guided elastic loop (runtime/elastic.py): "
+                         "tune for the ranks; on slice loss or repeated "
+                         "stragglers re-tune on the surviving ClusterSpec, "
+                         "restore the checkpoint onto the survivors and "
+                         "resume (needs --ckpt-dir)")
+    ap.add_argument("--straggler-patience", type=int, default=3,
+                    help="--elastic: consecutive straggler alerts before "
+                         "the loop checkpoints and re-meshes around the "
+                         "slow host")
     # the machine --strategy auto tunes for (default: this box)
     add_cluster_args(ap, default_system="host")
     args = ap.parse_args(argv)
     args.cfg = cfg or get_config(args.arch)
+    if args.elastic and not args.ckpt_dir:
+        raise SystemExit("--elastic restores from checkpoints: give it "
+                         "--ckpt-dir")
 
     world = "WORLD_SIZE" in os.environ
     # a caller that has initialised the world (launch.spawn) keeps it
@@ -192,6 +221,11 @@ def main(argv=None, cfg=None) -> dict:
     if own:
         init_from_env(backend)
     try:
+        # the trainer starts on the whole world; only run_elastic's
+        # shrunk meshes cover less (they use mesh.size and mesh.rank)
+        if args.elastic:
+            return _elastic(args, make_host_mesh(
+                backend=backend, device=args.device) if world else None)
         plan = None
         if args.strategy == "auto":
             plan = tune(args, dist.get_world_size() if world else 1)
@@ -206,7 +240,8 @@ def main(argv=None, cfg=None) -> dict:
                              "accumulation schedule)")
         mesh = None
         if world and plan is not None:
-            mesh = mesh_for_plan(plan, backend=backend, device=args.device)
+            mesh = make_host_mesh(model=plan.p2, backend=backend,
+                                  device=args.device)
         elif world:
             model_axis = args.model_axis
             if strategy == "pipeline" and model_axis is None:
@@ -261,82 +296,153 @@ def _loop(args, mesh, strategy: str, plan: TunedPlan | None) -> dict:
                              else CNN_STRATEGIES):
         raise SystemExit(f"--strategy {strategy}: the CNNs run under "
                          f"{CNN_STRATEGIES}, the LMs under {LM_STRATEGIES}")
-    zero1 = plan.zero1 if plan is not None else "zero1" in strategy
     # every cell is assembled by build_cell, as in the reference; a plan's
     # schedule, segments and virtual stages give way to --schedule and
-    # --segments given explicitly. On one device the strategy is moot: the
-    # single-device step (a pipeline's one stage holds the whole model)
-    by_hand = strategy if mesh is not None else "data"
-    cell = build_cell(
-        cfg, ShapeSpec("train_cli", args.seq, args.batch, "train"), mesh,
-        "auto" if plan is not None else by_hand, smoke=args.smoke,
-        q_chunk=min(256, args.seq), opt=OptimizerConfig(lr=args.lr,
-                                                         zero1=zero1),
-        accum=args.accum, plan=plan, segments=args.segments,
-        schedule=None if args.schedule == "auto" else args.schedule,
-        virtual_stages=None if plan is not None else args.virtual_stages,
-        device=args.device, seed=args.seed)
-    model, step, ctx, opt = (cell.model, cell.step_fn, cell.ctx,
-                             cell.meta["opt"])
+    # --segments given explicitly
+    shape = ShapeSpec("train_cli", args.seq, args.batch, "train")
+    data_cfg = data_config_for(mc, args.batch, args.seq, args.seed)
+    schedule = None if args.schedule == "auto" else args.schedule
+    if plan is not None:
+        # deployed as run_elastic deploys its plans
+        from ..api import Oracle
+        from ..runtime.elastic import bind_plan
+        ses = Oracle(cfg, shape, ClusterSpec.from_cli_args(args),
+                     smoke=args.smoke, batch=args.batch, seq=args.seq)
+        b = bind_plan(ses, mesh, 1 if mesh is None else mesh.size, data_cfg,
+                      OptimizerConfig(lr=args.lr), plan=plan,
+                      device=args.device, seed=args.seed, cell_kw=dict(
+                          q_chunk=min(256, args.seq), accum=args.accum,
+                          segments=args.segments, schedule=schedule))
+        cell, state, loader = b.cell, b.state, b.loader
+    else:
+        # on one device the strategy is moot: the single-device step (a
+        # pipeline's one stage holds the whole model)
+        cell = build_cell(
+            cfg, shape, mesh, strategy if mesh is not None else "data",
+            smoke=args.smoke, q_chunk=min(256, args.seq),
+            opt=OptimizerConfig(lr=args.lr, zero1="zero1" in strategy),
+            accum=args.accum, segments=args.segments, schedule=schedule,
+            virtual_stages=args.virtual_stages, device=args.device,
+            seed=args.seed)
+        state = train_state(cell.model, cell.meta["opt"], cell.ctx)
+        loader = CellLoader(cell, data_cfg)
+    step, ctx = cell.step_fn, cell.ctx
     pipe = "pipeline" in cell.meta
     if pipe and log:
         _print_pipeline(step, **cell.meta["pipeline"])
-    state = train_state(model, opt, ctx)
-    loader = Loader(data_config_for(mc, args.batch, args.seq, args.seed),
-                    ctx.device)
     ckpt, start = None, 0
     if args.ckpt_dir:
-        ckpt = Checkpointer(f"{args.ckpt_dir}/{args.arch}",
-                            config_tag=config_hash((args.arch, args.smoke)),
-                            mesh=ctx.mesh if ctx.sharded else None)
+        where, kw = f"{args.ckpt_dir}/{args.arch}", dict(
+            config_tag=config_hash((args.arch, args.smoke)),
+            mesh=ctx.mesh if ctx.sharded else None)
+        ckpt = _StageCheckpointer(step, where, **kw) if pipe \
+            else Checkpointer(where, **kw)
         start = ckpt.latest_step() or 0
         if start:
             state, start = ckpt.restore(state)
             if log:
                 print(f"resumed from step {start}", flush=True)
 
-    losses, step_s = [], []
-    t_start = time.perf_counter()
     if ctx.sharded and log:
         print(f"mesh {ctx.mesh} strategy {strategy}", flush=True)
-    for s in range(start, args.steps):
-        batch = loader.batch_at(s)
-        if not pipe:
-            batch = shard_batch(batch, ctx)
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        if ctx.device.type == "cuda":
-            torch.cuda.synchronize(ctx.device)
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-        if s % args.log_every == 0 and log:
-            print(f"step {s:5d} loss {losses[-1]:.4f} "
-                  f"grad_norm {float(m['grad_norm']):.3f} "
-                  f"({time.perf_counter() - t_start:.1f}s)", flush=True)
-        if ckpt is not None and (s + 1) % args.ckpt_every == 0:
-            _save(ckpt, state, s + 1, step if pipe else None, blocking=False)
-    final = max(start, args.steps)
-    if ckpt is not None:
-        ckpt.wait()
-        if ckpt.latest_step() != final:   # not the last async save's step
-            _save(ckpt, state, final, step if pipe else None, blocking=True)
-    if losses and log:
-        print(f"done at step {final}; loss {losses[0]:.4f} → "
-              f"{losses[-1]:.4f}")
-    elif log:     # resumed at or past --steps: no new steps this run
-        print(f"done at step {final}; no new steps "
-              f"(checkpoint already at --steps)")
+    losses, step_s, on_metrics = _recorder(args, log)
+    state, final = run_with_recovery(
+        step, state, loader, ckpt, n_steps=args.steps, start_step=start,
+        ckpt_every=args.ckpt_every, on_metrics=on_metrics)
+    _print_done(losses, final, log)
     out = {"losses": losses, "step_s": step_s, "device": str(ctx.device),
            "strategy": strategy, "plan": plan, "start_step": start,
            "mesh": dict(ctx.mesh.shape) if ctx.sharded else None,
            "ckpt_saves": ckpt.saves if ckpt is not None else []}
     if ctx.device.type == "cuda":
-        out["peak_bytes"] = _peaks(ctx)
-        if log:
-            print(f"peak memory per rank (max_memory_allocated): "
-                  f"{[f'{b / 2**30:.4g} GiB' for b in out['peak_bytes']]}",
-                  flush=True)
+        out["peak_bytes"] = _peaks(ctx.device, ctx.mesh if ctx.sharded
+                                   else None, log)
     return out
+
+
+def _elastic(args, mesh) -> dict:
+    """``--elastic``: ``run_elastic`` on ``mesh``'s ranks (None: one
+    process), from the latest checkpoint in ``<ckpt-dir>/<arch>``; the
+    result dict as ``_loop``'s, with the elastic events, the final plan,
+    and None for the strategy and mesh on a rank left out."""
+    from ..api import Oracle
+    from ..runtime.elastic import run_elastic
+    log = mesh is None or mesh.rank == 0
+    cfg = args.cfg
+    mc = cfg.smoke_model if args.smoke else cfg.model
+    ses = Oracle(cfg, "train_4k", ClusterSpec.from_cli_args(args),
+                 smoke=args.smoke, batch=args.batch, seq=args.seq)
+    ckpt = Checkpointer(f"{args.ckpt_dir}/{args.arch}",
+                        config_tag=config_hash((args.arch, args.smoke)),
+                        mesh=mesh)
+    start = ckpt.latest_step() or 0
+    if start and log:
+        print(f"resumed from step {start}", flush=True)
+    plans = []
+
+    def on_bind(b):
+        plans.append((b.plan, b.mesh))
+        if b.mesh is None or b.mesh.rank == 0:
+            print(b.plan.describe(), flush=True)
+    losses, step_s, on_metrics = _recorder(args, log)
+    state, final, events = run_elastic(
+        ses, data_config_for(mc, args.batch, args.seq, args.seed), ckpt,
+        n_steps=args.steps, mesh=mesh, device=args.device,
+        opt=OptimizerConfig(lr=args.lr),   # ZeRO-1 follows each plan
+        ckpt_every=args.ckpt_every, seed=args.seed,
+        straggler_patience=args.straggler_patience, on_metrics=on_metrics,
+        on_bind=on_bind, cell_kw=dict(q_chunk=min(256, args.seq)))
+    for ev in events:
+        if log:
+            print(f"elastic event @ step {ev.step}: {ev.cause}, "
+                  f"p {ev.p_before}→{ev.p_after}, re-tuned {ev.strategy} "
+                  f"(mesh {ev.mesh_shape[0]}x{ev.mesh_shape[1]}), resumed "
+                  f"from step {ev.resumed_from}", flush=True)
+    live = state is not None
+    plan, cell_mesh = plans[-1] if plans else (None, None)
+    if live:
+        _print_done(losses, final, log)
+    out = {"losses": losses, "step_s": step_s,
+           "device": str(mesh.device if mesh is not None
+                         else resolve_device(args.device)),
+           "strategy": plan.exec_strategy("train") if live else None,
+           "plan": plan if live else None, "start_step": start,
+           "mesh": dict(cell_mesh.shape) if live and cell_mesh is not None
+           and cell_mesh.size > 1 else None,
+           "ckpt_saves": ckpt.saves, "events": events}
+    if torch.device(args.device).type == "cuda":
+        # over the final mesh's ranks; a rank left out joins no collective
+        # after its return (the world's timeout need not cover the
+        # survivors' remaining steps) and reports its own peak
+        out["peak_bytes"] = _peaks(resolve_device(args.device)
+                                   if mesh is None else mesh.device,
+                                   cell_mesh if live else None, log)
+    return out
+
+
+def _recorder(args, log: bool):
+    """The losses and step seconds lists and the ``on_metrics`` that fills
+    them and prints every ``--log-every`` steps."""
+    losses, step_s = [], []
+    t_start = time.perf_counter()
+
+    def on_metrics(s, m):
+        step_s.append(m["step_s"])
+        losses.append(float(m["loss"]))
+        if s % args.log_every == 0 and log:
+            print(f"step {s:5d} loss {losses[-1]:.4f} "
+                  f"grad_norm {float(m['grad_norm']):.3f} "
+                  f"({time.perf_counter() - t_start:.1f}s)", flush=True)
+    return losses, step_s, on_metrics
+
+
+def _print_done(losses, final: int, log: bool) -> None:
+    if losses and log:
+        print(f"done at step {final}; loss {losses[0]:.4f} → "
+              f"{losses[-1]:.4f}", flush=True)
+    elif log:     # resumed at or past --steps: no new steps this run
+        print(f"done at step {final}; no new steps "
+              f"(checkpoint already at --steps)", flush=True)
 
 
 def _print_pipeline(step, schedule: str, segments: int,
@@ -346,25 +452,35 @@ def _print_pipeline(step, schedule: str, segments: int,
           + f" segments<={segments} cuts={step.bounds}", flush=True)
 
 
-def _save(ckpt: Checkpointer, state: dict, n: int, pipe_step,
-          blocking: bool) -> None:
-    """Checkpoints ``state`` at step ``n`` on every rank; a pipeline's
-    stages first hand every rank the blocks they own."""
-    if pipe_step is not None:
-        gather_pipeline_state(state, pipe_step)
-    ckpt.save(state, n, blocking=blocking)
+class _StageCheckpointer(Checkpointer):
+    """A pipeline's store: before each save the stages hand every rank the
+    blocks they own (``gather_pipeline_state`` with ``pipe_step``, the
+    step that holds the cuts)."""
+
+    def __init__(self, pipe_step, *args, **kw):
+        super().__init__(*args, **kw)
+        self.pipe_step = pipe_step
+
+    def save(self, state, step: int, blocking: bool = True):
+        gather_pipeline_state(state, self.pipe_step)
+        return super().save(state, step, blocking)
 
 
-def _peaks(ctx: ShardingCtx) -> list[int]:
-    """Every rank's ``max_memory_allocated``, in rank order."""
-    peak = torch.cuda.max_memory_allocated(ctx.device)
-    if not ctx.sharded:
-        return [peak]
-    mine = torch.tensor([peak], dtype=torch.int64,
-                        device=ctx.mesh.host_device)
-    parts = [torch.empty_like(mine) for _ in range(ctx.mesh.size)]
-    dist.all_gather(parts, mine)
-    return [int(t) for t in parts]
+def _peaks(device: torch.device, mesh, log: bool) -> list[int]:
+    """Every rank's ``max_memory_allocated`` on ``device``, in rank order
+    (one all-gather over ``mesh``'s ranks), printed by rank 0."""
+    peak = torch.cuda.max_memory_allocated(device)
+    peaks = [peak]
+    if mesh is not None and mesh.size > 1:
+        mine = torch.tensor([peak], dtype=torch.int64,
+                            device=mesh.host_device)
+        parts = [torch.empty_like(mine) for _ in range(mesh.size)]
+        dist.all_gather(parts, mine, group=mesh.group(tuple(mesh.shape)).pg)
+        peaks = [int(t) for t in parts]
+    if log:
+        print(f"peak memory per rank (max_memory_allocated): "
+              f"{[f'{b / 2**30:.4g} GiB' for b in peaks]}", flush=True)
+    return peaks
 
 
 if __name__ == "__main__":

@@ -21,7 +21,8 @@ rank updates its block of the state and of the parameter
 (``apply_update``, from the whole summed gradient), then the parameter is
 all-gathered over "data" (``gather_zero1``): the numbers of the step
 without ZeRO-1. The state tensors carry their placement as parameters do
-(``place``, ``global_shape``, ``shard_index``). On one device ``zero1``
+(``place``, ``global_shape``, ``shard_index``), without ZeRO-1 their
+parameter's. On one device ``zero1``
 changes nothing; unlike the reference's, it is off unless asked for (the
 trainer sets it for the ``*_zero1`` tables, as the reference's
 ``build_cell`` does).
@@ -80,6 +81,16 @@ def _zero1_zeros(p: torch.Tensor, ctx) -> torch.Tensor:
     return t
 
 
+def _zeros_like_block(p: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros shaped like ``p``'s block, placed as ``p`` is (so a
+    checkpoint gathers the whole moment, not this rank's block alone)."""
+    t = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    if hasattr(p, "place"):
+        t.place, t.global_shape, t.shard_index = \
+            p.place, p.global_shape, p.shard_index
+    return t
+
+
 def init_state(opt: OptimizerConfig, params: dict[str, torch.Tensor],
                ctx=None) -> dict:
     """fp32 zeros shaped like each parameter (counterpart of
@@ -89,8 +100,7 @@ def init_state(opt: OptimizerConfig, params: dict[str, torch.Tensor],
     def zeros():
         if opt.zero1 and ctx is not None and ctx.sharded:
             return {k: _zero1_zeros(p, ctx) for k, p in params.items()}
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in params.items()}
+        return {k: _zeros_like_block(p) for k, p in params.items()}
 
     if opt.name == "adamw":
         return {"m": zeros(), "v": zeros()}

@@ -1,6 +1,6 @@
 """``launch/train.py --strategy auto`` on the CPU: the trainer tunes with the
 port's ``core.autotune``, prints the plan and deploys it (its rules table
-on the mesh ``launch.mesh.mesh_for_plan`` shapes, ZeRO-1 and remat from
+on the mesh ``runtime.elastic.bind_plan`` shapes, ZeRO-1 and remat from
 its switches, a pipeline plan's schedule), at the smoke widths.
 
 In one process (p = 1) and on 4 gloo ranks (one spawn for the file), the
